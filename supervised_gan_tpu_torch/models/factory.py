@@ -1,0 +1,20 @@
+"""Model recipe factory: the string dispatch of supervised_gan_tpu/models/
+factory.py, for the recipes ported so far."""
+
+_NOT_YET = ('fcgan', 'cgan', 'cgan2', 'cgan_cycle', 'cgan2_cycle',
+            'cgan_causal', 'twostage', 'twostage_factd', 'test',
+            'segmentation', 'segmentation_cycle')
+
+
+def create_model(opt):
+    print(opt.model)
+    if opt.model == 'twostage_cycle':
+        from .twostage_cycle import TwoStageCycleModel
+        model = TwoStageCycleModel()
+    elif opt.model in _NOT_YET:
+        raise NotImplementedError('Model [%s] not yet ported' % opt.model)
+    else:
+        raise ValueError("Model [%s] not recognized." % opt.model)
+    model.initialize(opt)
+    print("model [%s] was created" % model.name())
+    return model

@@ -1,0 +1,163 @@
+"""Layers of the network zoo as torch modules (NCHW activations).
+
+Counterpart of supervised_gan_tpu/nn/core.py.  Parameter and buffer names
+follow torch ``state_dict`` naming (``Sequential`` children keyed by
+position), so the reference's ``.pth`` checkpoints and the ones the JAX
+package writes (utils/pth.py there) load with ``strict=True``.
+
+Weight init follows the reference's ``weights_init`` (nn/core.py:19-22 of
+the JAX package): conv and convT weights N(0, 0.02), BatchNorm weight
+N(1, 0.02) and bias 0, conv biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) with
+fan_in = in_nc * k * k for both conv kinds.
+
+Layers compute in the dtype of their input: a model casts its inputs for
+``--compute_dtype bfloat16`` and the weights are cast on the way into each
+conv (float32 accumulation, float32 norm statistics).
+
+The conv biases that the JAX package skips in front of a mean-subtracting
+norm (nn/core.py:102-115 there) are applied here: the norm removes them, so
+the forward agrees up to rounding.
+"""
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops import (batch_norm, bilinear_upsample, conv2d, conv_transpose2d,
+                   instance_norm_act)
+
+
+class Conv2d(nn.Module):
+    def __init__(self, in_nc, out_nc, kernel, stride=1, padding=0, bias=True):
+        super().__init__()
+        self.in_nc, self.out_nc = in_nc, out_nc
+        self.kernel, self.stride, self.padding = kernel, stride, padding
+        self.weight = nn.Parameter(torch.empty(out_nc, in_nc, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(out_nc)) if bias else None
+
+    def fan_in(self):
+        return self.in_nc * self.kernel * self.kernel
+
+    def forward(self, x):
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class ConvTranspose2d(Conv2d):
+    """Weight in torch's (in, out, kh, kw) layout."""
+
+    def __init__(self, in_nc, out_nc, kernel, stride=2, padding=1, bias=True,
+                 output_padding=0):
+        super().__init__(in_nc, out_nc, kernel, stride, padding, bias)
+        self.output_padding = output_padding
+        self.weight = nn.Parameter(torch.empty(in_nc, out_nc, kernel, kernel))
+
+    def forward(self, x):
+        return conv_transpose2d(x, self.weight, self.bias, self.stride,
+                                self.padding, self.output_padding)
+
+
+class BatchNorm2d(nn.Module):
+    """affine BatchNorm with batch statistics always (the reference never
+    calls ``.eval()``).  The running buffers exist only so checkpoints keep
+    torch's BatchNorm keys; they are never read or updated."""
+
+    def __init__(self, nc, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(nc))
+        self.bias = nn.Parameter(torch.empty(nc))
+        self.register_buffer('running_mean', torch.zeros(nc))
+        self.register_buffer('running_var', torch.ones(nc))
+
+    def forward(self, x):
+        return batch_norm(x, self.weight, self.bias, self.eps)
+
+
+class InstanceNorm2d(nn.Module):
+    """affine=False, no parameters; alone it is the IN kernel with no
+    activation."""
+
+    def __init__(self, nc=None, eps=1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x):
+        return instance_norm_act(x, self.eps, None)
+
+
+class ReLU(nn.Module):
+    def forward(self, x):
+        return torch.relu(x)
+
+
+class LeakyReLU(nn.Module):
+    def __init__(self, slope=0.2):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return torch.nn.functional.leaky_relu(x, self.slope)
+
+
+class Tanh(nn.Module):
+    def forward(self, x):
+        return torch.tanh(x)
+
+
+class Upsample(nn.Module):
+    """Bilinear x-scale upsample, align_corners=True."""
+
+    def __init__(self, scale_factor=2, mode='bilinear'):
+        super().__init__()
+        if mode != 'bilinear':
+            raise NotImplementedError('Upsample mode [%s] not yet ported' % mode)
+        self.scale = scale_factor
+
+    def forward(self, x):
+        return bilinear_upsample(x, self.scale)
+
+
+class Sequential(nn.Sequential):
+    """Position-keyed container.  An InstanceNorm2d followed by ReLU or
+    LeakyReLU runs as ONE call of the fused IN kernel with that slope
+    (nn/core.py:208-216 of the JAX package)."""
+
+    def forward(self, x):
+        layers = list(self)
+        i = 0
+        while i < len(layers):
+            layer = layers[i]
+            if isinstance(layer, InstanceNorm2d):
+                nxt = layers[i + 1] if i + 1 < len(layers) else None
+                slope = None
+                if isinstance(nxt, LeakyReLU):
+                    slope = nxt.slope
+                elif isinstance(nxt, ReLU):
+                    slope = 0.0
+                x = instance_norm_act(x, layer.eps, slope)
+                i += 1 if slope is None else 2
+                continue
+            x = layer(x)
+            i += 1
+        return x
+
+
+def init_weights(net, generator):
+    """The reference's weights_init, drawn from ``generator`` (a CPU
+    torch.Generator) in module order."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, Conv2d):
+                m.weight.normal_(0.0, 0.02, generator=generator)
+                if m.bias is not None:
+                    bound = 1.0 / math.sqrt(m.fan_in())
+                    m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, BatchNorm2d):
+                m.weight.normal_(1.0, 0.02, generator=generator)
+                m.bias.zero_()
+    return net
+
+
+def count_params(net):
+    return sum(p.numel() for p in net.parameters())

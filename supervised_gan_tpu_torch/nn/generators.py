@@ -1,0 +1,149 @@
+"""The generators of the DSGAN sampler (NCHW).
+
+Counterparts of supervised_gan_tpu/nn/generators.py: `FCGANGenerator`
+(:41-95) and the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
+`CascadedRefinementNetwork`, :265-386).  Structure, channel arithmetic,
+layer order and attribute names match, so parameter counts and state_dict
+keys line up.  Dropout and injected Gaussian noise are not ported yet and
+raise.
+"""
+
+import torch
+from torch import nn
+
+from .core import (BatchNorm2d, Conv2d, ConvTranspose2d, ReLU, Sequential,
+                   Upsample)
+from ..ops import avg_pool
+
+
+def activate(y, activation='tanh'):
+    if activation == 'tanh':
+        return torch.tanh(y)
+    if activation in (None, 'none'):
+        return y
+    raise NotImplementedError('activation [%s] not yet ported' % (activation,))
+
+
+class FCGANGenerator(nn.Module):
+    """DCGAN-style ConvTranspose stack from a noise image; BatchNorm always.
+    use_fcn (noiseSize != 1): the first layer is k4 s2 p1, else k4 s1 p0.
+    Output side = noiseSize * 2^(n_layers+1) with use_fcn."""
+
+    def __init__(self, noise_nc, input_nc, ngf=64, n_layers=3,
+                 use_dropout=False, use_fcn=False):
+        super().__init__()
+        if use_dropout:
+            raise NotImplementedError('fcgan dropout not yet ported '
+                                      '(pass --no_dropout1)')
+        nf_mult = min(2 ** (n_layers - 1), 8)
+        if use_fcn:
+            first = ConvTranspose2d(noise_nc, ngf * nf_mult, 4, 2, 1, bias=False)
+        else:
+            first = ConvTranspose2d(noise_nc, ngf * nf_mult, 4, 1, 0, bias=False)
+        layers = [first, BatchNorm2d(ngf * nf_mult), ReLU()]
+        for n in range(1, n_layers):
+            prev = nf_mult
+            nf_mult = min(2 ** (n_layers - n - 1), 8)
+            layers += [ConvTranspose2d(ngf * prev, ngf * nf_mult, 4, 2, 1),
+                       BatchNorm2d(ngf * nf_mult), ReLU()]
+        layers.append(ConvTranspose2d(ngf, input_nc, 4, 2, 1, bias=False))
+        self.model = Sequential(*layers)
+
+    def forward(self, noise, activation='tanh'):
+        return activate(self.model(noise), activation)
+
+
+class CrnUpsampleBlock(nn.Module):
+    """convt: ConvT k4s2p1 + norm;  bilinear: Conv3x3 + x2 bilinear + norm."""
+
+    def __init__(self, input_nc, output_nc, mode='convt',
+                 norm_layer=BatchNorm2d, add_gaussian_noise=False):
+        super().__init__()
+        if add_gaussian_noise:
+            raise NotImplementedError('CRN --add_gaussian_noise not yet ported')
+        if mode == 'convt':
+            self.model = Sequential(
+                ConvTranspose2d(input_nc, output_nc, 4, 2, 1, bias=False),
+                norm_layer(output_nc))
+        elif mode == 'bilinear':
+            self.model = Sequential(
+                Conv2d(input_nc, output_nc, 3, 1, 1),
+                Upsample(2, 'bilinear'),
+                norm_layer(output_nc))
+        else:
+            raise NotImplementedError('UpsampleBlock mode [%s]' % mode)
+
+    def forward(self, x):
+        return self.model(x)
+
+
+class CrnInterBlock(nn.Module):
+    """(n_layers-1) x [ReLU, Conv3x3, norm] then [ReLU, Conv3x3 (+norm unless
+    outermost)]."""
+
+    def __init__(self, input_nc, output_nc, n_layers=1, norm_layer=BatchNorm2d,
+                 outer_most=False):
+        super().__init__()
+        layers = []
+        for _ in range(1, n_layers):
+            layers += [ReLU(), Conv2d(input_nc, input_nc, 3, 1, 1),
+                       norm_layer(input_nc)]
+        layers += [ReLU(), Conv2d(input_nc, output_nc, 3, 1, 1)]
+        if not outer_most:
+            layers.append(norm_layer(output_nc))
+        self.model = Sequential(*layers)
+
+    def forward(self, x):
+        return self.model(x)
+
+
+class CascadedRefinementNetwork(nn.Module):
+    """6-scale cascaded refinement: at each scale the label is AvgPool-
+    downsampled (64, 32, 16, 8, 4, 2), embedded by a shared (or per-scale)
+    3x3 conv block and concatenated with the upsampled hidden state.  The
+    label side must be 64 * noiseSize."""
+
+    def __init__(self, input_nc, output_nc, noise_nc, ngf=64, n_layers=5,
+                 norm_layer=BatchNorm2d, upsample_mode='convt',
+                 add_gaussian_noise=False, share_label_weights=True,
+                 n_layers_block=1):
+        super().__init__()
+        if n_layers != 5:
+            raise ValueError('the CRN has n_layers == 5, got %d' % n_layers)
+        self.share_label_weights = share_label_weights
+
+        def hblock(in_nc, out_nc, outer_most=False, with_gauss=True):
+            return Sequential(
+                CrnUpsampleBlock(in_nc, ngf, mode=upsample_mode,
+                                 norm_layer=norm_layer,
+                                 add_gaussian_noise=(add_gaussian_noise
+                                                     and with_gauss)),
+                CrnInterBlock(ngf, out_nc, n_layers=n_layers_block,
+                              norm_layer=norm_layer, outer_most=outer_most))
+
+        self.blockh5 = hblock(noise_nc + input_nc, ngf)
+        self.blockh4 = hblock(ngf + ngf, ngf)
+        self.blockh3 = hblock(ngf + ngf, ngf)
+        self.blockh2 = hblock(ngf + ngf, ngf)
+        self.blockh1 = hblock(ngf + ngf, ngf)
+        self.blockh0 = hblock(ngf + ngf, output_nc, outer_most=True,
+                              with_gauss=False)
+
+        def lblock():
+            return Sequential(Conv2d(input_nc, ngf, 3, 1, 1), norm_layer(ngf))
+
+        if share_label_weights:
+            self.blockl = lblock()
+        else:
+            for i in range(5):
+                setattr(self, 'blockl%d' % i, lblock())
+
+    def forward(self, label, noise, activation='tanh'):
+        h = self.blockh5(torch.cat([avg_pool(label, 64), noise], 1))
+        for pool, hname, lidx in ((32, 'blockh4', 4), (16, 'blockh3', 3),
+                                  (8, 'blockh2', 2), (4, 'blockh1', 1),
+                                  (2, 'blockh0', 0)):
+            lname = 'blockl' if self.share_label_weights else 'blockl%d' % lidx
+            l = getattr(self, lname)(avg_pool(label, pool))
+            h = getattr(self, hname)(torch.cat([l, h], 1))
+        return activate(h, activation)

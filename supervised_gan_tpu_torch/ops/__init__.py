@@ -1,0 +1,9 @@
+from .conv import conv2d, conv_transpose2d
+from .norm import instance_norm_act, batch_norm
+from .resample import avg_pool, bilinear_upsample
+
+__all__ = [
+    "conv2d", "conv_transpose2d",
+    "instance_norm_act", "batch_norm",
+    "avg_pool", "bilinear_upsample",
+]
