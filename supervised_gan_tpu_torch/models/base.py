@@ -1,11 +1,18 @@
-"""BaseModel, sampling subset: the recipe protocol the drivers consume
-(counterpart of supervised_gan_tpu/models/base.py; reference
-models/base_model.py:5-64).
+"""BaseModel: the recipe protocol the drivers consume (counterpart of
+supervised_gan_tpu/models/base.py; reference models/base_model.py:5-64).
 
 It holds the device (``--gpu_ids``: ``cuda:<first id>``, or the CPU for
-``-1``), the compute dtype, and two generators seeded from ``--manualSeed``:
-a CPU one for weight init and one on the device for every noise draw.  They
-do not reproduce ``jax.random``'s numbers.
+``-1``), the compute dtype, and three generators seeded from
+``--manualSeed``: a CPU one for weight init, one on the device for every
+noise draw and dropout mask, and a CPU one for the image pools' decisions.
+They do not reproduce ``jax.random``'s numbers.
+
+Checkpoints: ``<label>_net_<name>.pth`` per network (a CPU torch
+``state_dict``, the format of the reference and of the JAX package), and
+the port's own full train state ``<label>_state.pt`` (parameters, Adam
+moments and steps, pools, learning rates and generator states) for an
+exact ``--continue_train``.  The JAX package's ``_state.pkl`` is a
+different format and is not read.
 """
 
 import os
@@ -23,7 +30,7 @@ def parse_which_channel(spec):
 
 def device_from_opt(gpu_ids):
     """The device --gpu_ids asks for.  A GPU that is not there raises: the
-    sampler never carries on silently on the CPU."""
+    drivers never carry on silently on the CPU."""
     if not gpu_ids:
         return torch.device('cpu')
     if not torch.cuda.is_available():
@@ -31,6 +38,14 @@ def device_from_opt(gpu_ids):
                            'available; pass --gpu_ids -1 to run on the CPU'
                            % gpu_ids[0])
     return torch.device('cuda', gpu_ids[0])
+
+
+def adam(groups, beta1):
+    """optax.scale_by_adam(b1=beta1, b2=0.999, eps=1e-8) with the learning
+    rate applied per parameter group (models/base.py:179-218 there):
+    torch's Adam computes the same function.  ``groups``: [(params, lr)]."""
+    return torch.optim.Adam([{'params': list(p), 'lr': lr} for p, lr in groups],
+                            betas=(beta1, 0.999), eps=1e-8)
 
 
 class BaseModel:
@@ -47,6 +62,7 @@ class BaseModel:
         self.init_generator = torch.Generator().manual_seed(seed)
         self.noise_generator = torch.Generator(
             device=self.device).manual_seed(seed)
+        self.pool_generator = torch.Generator().manual_seed(seed + 1)
         self.compute_dtype = (torch.bfloat16
                               if opt.compute_dtype == 'bfloat16'
                               else torch.float32)
@@ -65,3 +81,45 @@ class BaseModel:
         path = self._net_path(network_label, epoch_label, model_dir)
         print('loading %s' % path)
         return pthio.load_pth(path, net)
+
+    def save_network(self, net, network_label, epoch_label):
+        pthio.save_pth(self._net_path(network_label, epoch_label), net)
+
+    def _state_path(self, epoch_label):
+        return os.path.join(self.save_dir, '%s_state.pt' % epoch_label)
+
+    def save_full_state(self, epoch_label, nets, optimizers, pools, extra):
+        """nets / optimizers / pools: dicts by name; extra: plain values."""
+        payload = {
+            'params': {k: {n: v.detach().cpu() for n, v in
+                           net.state_dict().items()}
+                       for k, net in nets.items()},
+            'optim': {k: o.state_dict() for k, o in optimizers.items()},
+            'pools': {k: None if p is None else
+                      {'images': p['images'].cpu(), 'num': p['num']}
+                      for k, p in pools.items()},
+            'generators': {'noise': self.noise_generator.get_state(),
+                           'pool': self.pool_generator.get_state()},
+            'extra': dict(extra)}
+        torch.save(payload, self._state_path(epoch_label))
+
+    def load_full_state(self, epoch_label, nets, optimizers, pools):
+        """Restore what save_full_state wrote, in place; returns its
+        ``extra`` dict, or None when there is no state file."""
+        path = self._state_path(epoch_label)
+        if not os.path.exists(path):
+            return None
+        print('loading %s' % path)
+        payload = torch.load(path, map_location='cpu', weights_only=True)
+        for k, net in nets.items():
+            net.load_state_dict(payload['params'][k], strict=True)
+        for k, o in optimizers.items():
+            o.load_state_dict(payload['optim'][k])
+        for k, p in pools.items():
+            saved = payload['pools'][k]
+            if p is not None:
+                p['images'].copy_(saved['images'])
+                p['num'] = saved['num']
+        self.noise_generator.set_state(payload['generators']['noise'])
+        self.pool_generator.set_state(payload['generators']['pool'])
+        return payload['extra']

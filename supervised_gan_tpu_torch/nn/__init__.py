@@ -1,11 +1,12 @@
 from .core import (Sequential, Conv2d, ConvTranspose2d, BatchNorm2d,
-                   InstanceNorm2d, ReLU, LeakyReLU, Tanh, Upsample,
-                   count_params, init_weights)
-from .factory import define_G, get_norm_layer, print_network
+                   InstanceNorm2d, ReLU, LeakyReLU, Tanh, Sigmoid, Dropout,
+                   Upsample, count_params, init_weights,
+                   set_dropout_generator)
+from .factory import define_D, define_G, get_norm_layer, print_network
 
 __all__ = [
     "Sequential", "Conv2d", "ConvTranspose2d", "BatchNorm2d",
-    "InstanceNorm2d", "ReLU", "LeakyReLU", "Tanh", "Upsample",
-    "count_params", "init_weights", "define_G", "get_norm_layer",
-    "print_network",
+    "InstanceNorm2d", "ReLU", "LeakyReLU", "Tanh", "Sigmoid", "Dropout",
+    "Upsample", "count_params", "init_weights", "set_dropout_generator",
+    "define_D", "define_G", "get_norm_layer", "print_network",
 ]

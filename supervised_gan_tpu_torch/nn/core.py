@@ -14,9 +14,14 @@ Layers compute in the dtype of their input: a model casts its inputs for
 ``--compute_dtype bfloat16`` and the weights are cast on the way into each
 conv (float32 accumulation, float32 norm statistics).
 
-The conv biases that the JAX package skips in front of a mean-subtracting
-norm (nn/core.py:102-115 there) are applied here: the norm removes them, so
-the forward agrees up to rounding.
+A conv bias right before a mean-subtracting norm (allowing one bilinear
+Upsample in between) is skipped in the forward, as the JAX package's
+``_inert_bias_at`` peephole does (nn/core.py:102-115 and 228-236 there):
+the norm removes it exactly, so it stays in the ``state_dict`` but gets no
+gradient, and Adam leaves it frozen.
+
+Dropout draws its masks from a ``torch.Generator`` that the model assigns
+(``set_dropout_generator``), the port's counterpart of the JAX ``Ctx`` key.
 """
 
 import math
@@ -39,8 +44,9 @@ class Conv2d(nn.Module):
     def fan_in(self):
         return self.in_nc * self.kernel * self.kernel
 
-    def forward(self, x):
-        return conv2d(x, self.weight, self.bias, self.stride, self.padding)
+    def forward(self, x, skip_bias=False):
+        b = None if skip_bias else self.bias
+        return conv2d(x, self.weight, b, self.stride, self.padding)
 
 
 class ConvTranspose2d(Conv2d):
@@ -52,8 +58,9 @@ class ConvTranspose2d(Conv2d):
         self.output_padding = output_padding
         self.weight = nn.Parameter(torch.empty(in_nc, out_nc, kernel, kernel))
 
-    def forward(self, x):
-        return conv_transpose2d(x, self.weight, self.bias, self.stride,
+    def forward(self, x, skip_bias=False):
+        b = None if skip_bias else self.bias
+        return conv_transpose2d(x, self.weight, b, self.stride,
                                 self.padding, self.output_padding)
 
 
@@ -105,6 +112,39 @@ class Tanh(nn.Module):
         return torch.tanh(x)
 
 
+class Sigmoid(nn.Module):
+    def forward(self, x):
+        return torch.sigmoid(x)
+
+
+class Dropout(nn.Module):
+    """Keeps each element with probability 1 - p and scales it by
+    1 / (1 - p), in training and sampling alike (the reference never calls
+    ``.eval()``).  The mask comes from ``self.generator`` (on x's device)."""
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError('Dropout needs a generator: call '
+                               'set_dropout_generator on its network')
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(net, generator):
+    for m in net.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
 class Upsample(nn.Module):
     """Bilinear x-scale upsample, align_corners=True."""
 
@@ -121,7 +161,8 @@ class Upsample(nn.Module):
 class Sequential(nn.Sequential):
     """Position-keyed container.  An InstanceNorm2d followed by ReLU or
     LeakyReLU runs as ONE call of the fused IN kernel with that slope
-    (nn/core.py:208-216 of the JAX package)."""
+    (nn/core.py:208-216 of the JAX package), and a conv whose bias the next
+    norm cancels runs without it (``_inert_bias_at``)."""
 
     def forward(self, x):
         layers = list(self)
@@ -138,9 +179,24 @@ class Sequential(nn.Sequential):
                 x = instance_norm_act(x, layer.eps, slope)
                 i += 1 if slope is None else 2
                 continue
-            x = layer(x)
+            if (isinstance(layer, Conv2d) and layer.bias is not None
+                    and self._inert_bias_at(i)):
+                x = layer(x, skip_bias=True)
+            else:
+                x = layer(x)
             i += 1
         return x
+
+    def _inert_bias_at(self, i):
+        """True when layer i's bias is cancelled exactly downstream: the
+        next layer (allowing one constant-preserving Upsample in between)
+        is a mean-subtracting norm."""
+        layers = list(self)
+        j = i + 1
+        if j < len(layers) and isinstance(layers[j], Upsample):
+            j += 1
+        return j < len(layers) and isinstance(layers[j],
+                                              (InstanceNorm2d, BatchNorm2d))
 
 
 def init_weights(net, generator):

@@ -1,11 +1,13 @@
 """Network factory: the string registry of supervised_gan_tpu/nn/factory.py
-(`define_G` :22), for the generators ported so far."""
+(`define_G` :22, `define_D` :66), for the networks ported so far."""
 
 from .core import BatchNorm2d, InstanceNorm2d, count_params, init_weights
+from . import discriminators as D
 from . import generators as G
 
-_NOT_YET = ('resnet_9blocks', 'resnet_6blocks', 'unet_128', 'unet_256',
-            'autoencoder', 'fcgan_star', 'dcgan')
+_NOT_YET = ('resnet_9blocks', 'resnet_6blocks', 'autoencoder', 'fcgan_star',
+            'dcgan')
+_NOT_YET_D = ('n_layers_sep', 'dcgan')
 
 
 def get_norm_layer(norm_type='instance'):
@@ -19,7 +21,8 @@ def get_norm_layer(norm_type='instance'):
 def define_G(input_nc, output_nc, ngf, which_model_netG, norm='batch',
              use_dropout=False, n_layers_G=5, use_fcn=False, noise_nc=0,
              add_gaussian_noise=False, upsample_mode='convt',
-             share_label_weights=True, n_layers_CRN_block=1, generator=None):
+             share_label_weights=True, n_layers_CRN_block=1, use_residual=False,
+             n_layers_G_skip=-1, generator=None):
     """Build a generator; with ``generator`` (a CPU torch.Generator) its
     weights are initialized from it, else they are left uninitialized for
     a checkpoint to fill."""
@@ -31,6 +34,11 @@ def define_G(input_nc, output_nc, ngf, which_model_netG, norm='batch',
             add_gaussian_noise=add_gaussian_noise,
             share_label_weights=share_label_weights,
             n_layers_block=n_layers_CRN_block)
+    elif which_model_netG in ('unet_128', 'unet_256'):
+        net = G.UnetGenerator(
+            input_nc, output_nc, 7 if which_model_netG == 'unet_128' else 8,
+            ngf, norm_layer, use_dropout, use_residual, add_gaussian_noise,
+            n_layers_G_skip)
     elif which_model_netG in ('fcgan', 'deconv'):
         net = G.FCGANGenerator(noise_nc, input_nc, ngf, n_layers=n_layers_G,
                                use_dropout=use_dropout, use_fcn=use_fcn)
@@ -40,6 +48,27 @@ def define_G(input_nc, output_nc, ngf, which_model_netG, norm='batch',
     else:
         raise NotImplementedError(
             'Generator model name [%s] is not recognized' % which_model_netG)
+    if generator is not None:
+        init_weights(net, generator)
+    return net
+
+
+def define_D(input_nc, ndf, which_model_netD, n_layers_D=3, norm='batch',
+             use_sigmoid=False, scale_factor=1, num_classes=2,
+             generator=None):
+    """Build a discriminator; ``generator`` as in define_G."""
+    norm_layer = get_norm_layer(norm)
+    if which_model_netD in ('basic', 'n_layers'):
+        n_layers = 3 if which_model_netD == 'basic' else n_layers_D
+        net = D.NLayerDiscriminator(input_nc, ndf, n_layers, norm_layer,
+                                    use_sigmoid, scale_factor, num_classes)
+    elif which_model_netD in _NOT_YET_D:
+        raise NotImplementedError(
+            'Discriminator model name [%s] not yet ported' % which_model_netD)
+    else:
+        raise NotImplementedError(
+            'Discriminator model name [%s] is not recognized'
+            % which_model_netD)
     if generator is not None:
         init_weights(net, generator)
     return net

@@ -1,18 +1,19 @@
 """The generators of the DSGAN sampler (NCHW).
 
 Counterparts of supervised_gan_tpu/nn/generators.py: `FCGANGenerator`
-(:41-95) and the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
+(:41-95), the unet (`UnetSkipConnectionBlock`, `UnetGenerator`, :150-264,
+pixel output only) and the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
 `CascadedRefinementNetwork`, :265-386).  Structure, channel arithmetic,
 layer order and attribute names match, so parameter counts and state_dict
-keys line up.  Dropout and injected Gaussian noise are not ported yet and
-raise.
+keys line up.  Dropout in the fcgan and injected Gaussian noise are not
+ported yet and raise.
 """
 
 import torch
 from torch import nn
 
-from .core import (BatchNorm2d, Conv2d, ConvTranspose2d, ReLU, Sequential,
-                   Upsample)
+from .core import (BatchNorm2d, Conv2d, ConvTranspose2d, Dropout, LeakyReLU,
+                   ReLU, Sequential, Upsample)
 from ..ops import avg_pool
 
 
@@ -51,6 +52,84 @@ class FCGANGenerator(nn.Module):
 
     def forward(self, noise, activation='tanh'):
         return activate(self.model(noise), activation)
+
+
+class UnetSkipConnectionBlock(nn.Module):
+    """One U-Net level: y = model(x), returned as cat([y, x]) when this level
+    keeps its skip connection (reference models/networks.py:373-419)."""
+
+    def __init__(self, outer_nc, inner_nc, submodule=None, innermost=False,
+                 norm_layer=BatchNorm2d, use_dropout=False,
+                 add_gaussian_noise=False, add_skip_this=True,
+                 add_skip_sub=True):
+        super().__init__()
+        if add_gaussian_noise:
+            raise NotImplementedError('unet --add_gaussian_noise not yet '
+                                      'ported')
+        self.add_skip_this = add_skip_this
+        downconv = Conv2d(outer_nc, inner_nc, 4, 2, 1)
+        if innermost:
+            layers = [LeakyReLU(0.2), downconv,
+                      ReLU(), ConvTranspose2d(inner_nc, outer_nc, 4, 2, 1),
+                      norm_layer(outer_nc)]
+        else:
+            nc_mult = 2 if add_skip_sub else 1
+            layers = [LeakyReLU(0.2), downconv, norm_layer(inner_nc),
+                      submodule, ReLU(),
+                      ConvTranspose2d(inner_nc * nc_mult, outer_nc, 4, 2, 1),
+                      norm_layer(outer_nc)]
+            if use_dropout:
+                layers.append(Dropout(0.5))
+        self.model = Sequential(*layers)
+
+    def forward(self, x):
+        y = self.model(x)
+        return torch.cat([y, x], 1) if self.add_skip_this else y
+
+
+class UnetGenerator(nn.Module):
+    """Recursive U-Net; num_downs = 7 for unet_128, 8 for unet_256.
+    ``num_skips`` (< 0: all) limits how many levels, from the innermost,
+    keep their skip concat.  Takes no noise: stochasticity comes from
+    dropout only (reference models/networks.py:362-367)."""
+
+    def __init__(self, input_nc, output_nc, num_downs, ngf=64,
+                 norm_layer=BatchNorm2d, use_dropout=False, use_residual=False,
+                 add_gaussian_noise=False, num_skips=-1):
+        super().__init__()
+        self.use_residual = use_residual
+        if num_skips < 0:
+            num_skips = num_downs
+        gauss = dict(add_gaussian_noise=add_gaussian_noise)
+        add_skip_this = num_skips >= 1
+        block = UnetSkipConnectionBlock(ngf * 8, ngf * 8, norm_layer=norm_layer,
+                                        innermost=True,
+                                        add_skip_this=add_skip_this, **gauss)
+        for i in range(num_downs - 5):
+            add_skip_sub, add_skip_this = add_skip_this, num_skips >= i + 2
+            block = UnetSkipConnectionBlock(ngf * 8, ngf * 8, block,
+                                            norm_layer=norm_layer,
+                                            use_dropout=use_dropout,
+                                            add_skip_this=add_skip_this,
+                                            add_skip_sub=add_skip_sub, **gauss)
+        for outer_mult, inner_mult, skip_at in ((4, 8, num_downs - 3),
+                                                (2, 4, num_downs - 2),
+                                                (1, 2, num_downs - 1)):
+            add_skip_sub, add_skip_this = add_skip_this, num_skips >= skip_at
+            block = UnetSkipConnectionBlock(ngf * outer_mult, ngf * inner_mult,
+                                            block, norm_layer=norm_layer,
+                                            add_skip_this=add_skip_this,
+                                            add_skip_sub=add_skip_sub, **gauss)
+        nc_mult = 2 if add_skip_this else 1
+        self.model = Sequential(
+            Conv2d(input_nc, ngf, 4, 2, 1),
+            block,
+            ReLU(),
+            ConvTranspose2d(ngf * nc_mult, output_nc, 4, 2, 1))
+
+    def forward(self, x, activation='tanh'):
+        y = self.model(x)
+        return activate(x + y if self.use_residual else y, activation)
 
 
 class CrnUpsampleBlock(nn.Module):

@@ -1,9 +1,9 @@
 from .conv import conv2d, conv_transpose2d
 from .norm import instance_norm_act, batch_norm
-from .resample import avg_pool, bilinear_upsample
+from .resample import avg_pool, bilinear_upsample, blur_downsample
 
 __all__ = [
     "conv2d", "conv_transpose2d",
     "instance_norm_act", "batch_norm",
-    "avg_pool", "bilinear_upsample",
+    "avg_pool", "bilinear_upsample", "blur_downsample",
 ]

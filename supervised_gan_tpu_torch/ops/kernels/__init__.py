@@ -1,13 +1,18 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version.  A wrapper takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel (counting the launch in ``<wrapper>.launches``)
-or raises."""
+or raises.  ``functions`` holds the autograd Functions built on them."""
 
 from .conv3x3 import conv3x3, conv3x3_plain
+from .conv3x3_dw import conv3x3_dw, conv3x3_dw_plain
+from .conv4s2 import conv4s2, conv4s2_plain
 from .convt4s2 import convt4s2, convt4s2_plain
-from .instance_norm import instance_norm_act, instance_norm_act_plain
+from .instance_norm import (instance_norm_act, instance_norm_act_plain,
+                            instance_norm_bwd, instance_norm_bwd_plain)
+from .functions import Conv3x3, Conv4s2, ConvT4s2, InstanceNormAct
 
-KERNELS = (conv3x3, convt4s2, instance_norm_act)
+KERNELS = (conv3x3, convt4s2, instance_norm_act, conv3x3_dw,
+           instance_norm_bwd, conv4s2)
 
 
 def reset_launch_counts():
@@ -19,6 +24,9 @@ def launch_counts():
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["conv3x3", "conv3x3_plain", "convt4s2", "convt4s2_plain",
-           "instance_norm_act", "instance_norm_act_plain", "KERNELS",
+__all__ = ["conv3x3", "conv3x3_plain", "conv3x3_dw", "conv3x3_dw_plain",
+           "conv4s2", "conv4s2_plain", "convt4s2", "convt4s2_plain",
+           "instance_norm_act", "instance_norm_act_plain",
+           "instance_norm_bwd", "instance_norm_bwd_plain",
+           "Conv3x3", "Conv4s2", "ConvT4s2", "InstanceNormAct", "KERNELS",
            "reset_launch_counts", "launch_counts"]

@@ -25,7 +25,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / 'build'
-SOURCES = ('conv3x3', 'convt4s2', 'instance_norm')
+SOURCES = ('conv3x3', 'conv3x3_dw', 'conv4s2', 'convt4s2', 'instance_norm')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

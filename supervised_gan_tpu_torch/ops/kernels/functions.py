@@ -1,0 +1,121 @@
+"""Autograd Functions over the kernels: each forward is a kernel wrapper and
+each backward runs on kernels too (the JAX package's custom VJPs,
+ops/pallas/conv3x3.py:506-563, instance_norm.py:154-227 and conv4s2.py:
+190-199 there).  The wrappers take their plain versions for CPU tensors, so
+the same Functions run, differentiably, on the CPU.
+
+The weight gradients of the two k4 s2 convolutions are left to PyTorch's
+own ``torch.nn.grad.conv2d_weight``, as the JAX package left them to XLA.
+"""
+
+import torch
+from torch.nn.grad import conv2d_weight
+
+from .conv3x3 import conv3x3
+from .conv3x3_dw import conv3x3_dw
+from .conv4s2 import conv4s2
+from .convt4s2 import convt4s2
+from .instance_norm import instance_norm_act, instance_norm_bwd
+
+
+def _bias_grad(g):
+    return g.float().sum(dim=(0, 2, 3)).to(g.dtype)
+
+
+class Conv3x3(torch.autograd.Function):
+    """y = conv3x3(x, w, b).  dx is the same kernel on g with w flipped in
+    (ky, kx) and in/out swapped; dW is the conv3x3_dw kernel; db = sum g."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return conv3x3(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3(g, w.flip((2, 3)).transpose(0, 1).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_dw(x, g).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = _bias_grad(g)
+        return dx, dw, db
+
+
+class ConvT4s2(torch.autograd.Function):
+    """y = convt4s2(x, w, b), w (Ci, Co, 4, 4).  dx is the conv4s2 kernel on
+    g with the same weight tensor read as a conv weight (out = Ci,
+    in = Co)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return convt4s2(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv4s2(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_weight(g, w.shape, x, stride=2, padding=1)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = _bias_grad(g)
+        return dx, dw, db
+
+
+class Conv4s2(torch.autograd.Function):
+    """y = conv4s2(x, w, b) for even H and W.  dx is the convt4s2 kernel on
+    g with the same weight tensor read as a transposed-conv weight
+    (in = Co, out = Ci)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        if x.shape[2] % 2 or x.shape[3] % 2:
+            raise ValueError('Conv4s2 needs an even H and W, got %s'
+                             % (tuple(x.shape),))
+        x, w = x.contiguous(), w.contiguous()
+        ctx.save_for_backward(x, w)
+        ctx.has_bias = b is not None
+        return conv4s2(x, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = convt4s2(g, w)
+        if ctx.needs_input_grad[1]:
+            dw = conv2d_weight(x, w.shape, g, stride=2, padding=1)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = _bias_grad(g)
+        return dx, dw, db
+
+
+class InstanceNormAct(torch.autograd.Function):
+    """y = instance_norm_act(x, eps, slope); the forward keeps its (N, C)
+    mean and rstd for the instance_norm_bwd kernel."""
+
+    @staticmethod
+    def forward(ctx, x, eps, slope):
+        x = x.contiguous()
+        y, mean, rstd = instance_norm_act(x, eps, slope, return_stats=True)
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.slope = slope
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd = ctx.saved_tensors
+        return (instance_norm_bwd(x, g.contiguous(), mean, rstd, ctx.slope),
+                None, None)

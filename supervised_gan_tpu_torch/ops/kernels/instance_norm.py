@@ -1,15 +1,18 @@
-"""InstanceNorm(affine=False) + activation: the hand-written CUDA kernel
-(csrc/instance_norm.cu, a statistics pass and an apply pass) and its plain
-PyTorch version.
+"""InstanceNorm(affine=False) + activation and its backward: the
+hand-written CUDA kernels (csrc/instance_norm.cu, a statistics pass and an
+apply pass each way) and their plain PyTorch versions.
 
-Replaces the forward of supervised_gan_tpu/ops/pallas/instance_norm.py
-`fused_instance_norm_act` (:148): the whole-plane `_kernel` (:109) and the
-streaming `_fwd_stats_kernel` (:297) / `_fwd_apply_kernel` (:312), which
-compute one function.  Bound on the H100: bytes (see the source note).
+`instance_norm_act` replaces the forward of supervised_gan_tpu/ops/pallas/
+instance_norm.py `fused_instance_norm_act` (:148): the whole-plane `_kernel`
+(:109) and the streaming `_fwd_stats_kernel` (:297) / `_fwd_apply_kernel`
+(:312), which compute one function.  `instance_norm_bwd` replaces
+`_bwd_stats_kernel` (:319) and `_bwd_apply_kernel` (:337), reached through
+`_stream_bwd` (:416).  Bound on the H100: bytes (see the source note).
 
-Layout: x (N, C, H, W), float32 or bfloat16; statistics per (n, c) over
-H x W in float32; output in x's dtype.  ``slope`` None is identity, 0.0 is
-ReLU, anything else LeakyReLU(slope).
+Layout: x, g (N, C, H, W), float32 or bfloat16; statistics per (n, c) over
+H x W in float32, as (N, C) mean and rstd = 1/sqrt(var + eps); outputs in
+x's dtype.  ``slope`` None is identity, 0.0 is ReLU, anything else
+LeakyReLU(slope).
 """
 
 import ctypes
@@ -20,9 +23,15 @@ from . import build
 from .common import (DTYPE_CODES, check_cuda_inputs, on_cpu, raise_on_error,
                      stream_arg)
 
-_SIGNATURE = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-              + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                 ctypes.c_void_p], ctypes.c_int)
+_SIGNATURES = {
+    'instance_norm_act_fwd': (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p], ctypes.c_int),
+    'instance_norm_act_bwd': (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+}
 
 # elements of a plane per block: 512^2 planes split 32 ways, so the 64-plane
 # sites launch 2048 blocks per pass
@@ -30,28 +39,54 @@ _CHUNK = 8192
 _MAX_SPLITS = 1024
 
 
-def instance_norm_act_plain(x, eps=1e-5, slope=None):
+def instance_norm_act_plain(x, eps=1e-5, slope=None, return_stats=False):
     """The same function as the kernel, as the JAX forward computes it
-    (instance_norm.py:119-131): var = max(E[x^2] - mean^2, 0), f32."""
+    (instance_norm.py:119-131): var = max(E[x^2] - mean^2, 0), f32.  With
+    ``return_stats`` also the (N, C) mean and rstd."""
     xf = x.float()
     mean = xf.mean(dim=(2, 3), keepdim=True)
     msq = (xf * xf).mean(dim=(2, 3), keepdim=True)
     var = (msq - mean * mean).clamp_min(0.0)
-    y = (xf - mean) * torch.rsqrt(var + eps)
+    rstd = torch.rsqrt(var + eps)
+    y = (xf - mean) * rstd
     if slope is not None:
         y = torch.where(y >= 0, y, y * slope)
-    return y.to(x.dtype)
+    y = y.to(x.dtype)
+    if return_stats:
+        return y, mean[:, :, 0, 0], rstd[:, :, 0, 0]
+    return y
+
+
+def instance_norm_bwd_plain(x, g, mean, rstd, slope=None):
+    """The same function as the backward kernel, as the JAX stream kernels
+    compute it (instance_norm.py:319-344): x^ = (x - mean) * rstd,
+    g' = g * act'(x^), dx = rstd * (g' - mean(g') - x^ * mean(g' x^)), f32."""
+    n, c = mean.shape
+    m = mean.float().view(n, c, 1, 1)
+    r = rstd.float().view(n, c, 1, 1)
+    xh = (x.float() - m) * r
+    gp = g.float()
+    if slope is not None:
+        gp = torch.where(xh >= 0, gp, gp * slope)
+    gm = gp.mean(dim=(2, 3), keepdim=True)
+    gz = (gp * xh).mean(dim=(2, 3), keepdim=True)
+    return ((gp - gm - xh * gz) * r).to(x.dtype)
 
 
 def splits_for(hw):
     return max(1, min(_MAX_SPLITS, -(-hw // _CHUNK)))
 
 
-def instance_norm_act(x, eps=1e-5, slope=None):
+def _act_args(slope):
+    return int(slope is not None), float(slope if slope is not None else 0.0)
+
+
+def instance_norm_act(x, eps=1e-5, slope=None, return_stats=False):
     """CPU tensors take instance_norm_act_plain; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise.  With ``return_stats`` returns (y, mean, rstd), the
+    statistics as (N, C) float32."""
     if on_cpu(x):
-        return instance_norm_act_plain(x, eps, slope)
+        return instance_norm_act_plain(x, eps, slope, return_stats)
     check_cuda_inputs('instance_norm_act', x)
     if x.dim() != 4 or x.numel() == 0:
         raise ValueError('instance_norm_act: x must be a non-empty (N, C, H, '
@@ -62,16 +97,57 @@ def instance_norm_act(x, eps=1e-5, slope=None):
     partials = torch.empty((nc * splits * 2,), dtype=torch.float32,
                            device=x.device)
     y = torch.empty_like(x)
-    lib = build.load('instance_norm', {'instance_norm_act_fwd': _SIGNATURE})
+    stats = (torch.empty((2, n, c), dtype=torch.float32, device=x.device)
+             if return_stats else None)
+    lib = build.load('instance_norm', _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.instance_norm_act_fwd(
-            x.data_ptr(), y.data_ptr(), partials.data_ptr(), nc, hw, splits,
-            float(eps), int(slope is not None),
-            float(slope if slope is not None else 0.0),
-            DTYPE_CODES[x.dtype], stream_arg(x))
+            x.data_ptr(), y.data_ptr(), partials.data_ptr(),
+            None if stats is None else stats.data_ptr(), nc, hw, splits,
+            float(eps), *_act_args(slope), DTYPE_CODES[x.dtype],
+            stream_arg(x))
         instance_norm_act.launches += 1
     raise_on_error('instance_norm_act', err)
+    if return_stats:
+        return y, stats[0], stats[1]
     return y
 
 
 instance_norm_act.launches = 0
+
+
+def instance_norm_bwd(x, g, mean, rstd, slope=None):
+    """dx of instance_norm_act at x for the cotangent g, from the
+    forward's (N, C) float32 mean and rstd.  CPU tensors take
+    instance_norm_bwd_plain; CUDA tensors launch the kernel or raise."""
+    if on_cpu(x, g, mean, rstd):
+        return instance_norm_bwd_plain(x, g, mean, rstd, slope)
+    check_cuda_inputs('instance_norm_bwd', x, g)
+    if x.dim() != 4 or x.numel() == 0 or g.shape != x.shape:
+        raise ValueError('instance_norm_bwd: x %s and g %s must be one '
+                         'non-empty (N, C, H, W) shape'
+                         % (tuple(x.shape), tuple(g.shape)))
+    n, c, h, w = x.shape
+    for t in (mean, rstd):
+        if (t.shape != (n, c) or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError('instance_norm_bwd: statistics must be '
+                             'contiguous float32 (%d, %d) on %s' % (n, c,
+                                                                    x.device))
+    nc, hw = n * c, h * w
+    splits = splits_for(hw)
+    partials = torch.empty((nc * splits * 2,), dtype=torch.float32,
+                           device=x.device)
+    dx = torch.empty_like(x)
+    lib = build.load('instance_norm', _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.instance_norm_act_bwd(
+            x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr(), partials.data_ptr(), nc, hw, splits,
+            *_act_args(slope), DTYPE_CODES[x.dtype], stream_arg(x))
+        instance_norm_bwd.launches += 1
+    raise_on_error('instance_norm_bwd', err)
+    return dx
+
+
+instance_norm_bwd.launches = 0

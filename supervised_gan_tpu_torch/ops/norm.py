@@ -2,6 +2,7 @@
 
 Counterpart of supervised_gan_tpu/ops/norm.py (`instance_norm` :23,
 `batch_norm` :36).  InstanceNorm goes to the fused IN+activation kernel
+through its autograd Function, whose backward is the IN backward kernel
 (``instance_norm_act`` with slope None is the plain norm).
 BatchNorm always normalizes with batch statistics, because the reference
 never calls ``.eval()``; it is plain torch, as the JAX package has no kernel
@@ -10,7 +11,13 @@ for it.  Statistics are float32; outputs keep x's dtype.
 
 import torch
 
-from .kernels import instance_norm_act
+from .kernels import InstanceNormAct
+
+
+def instance_norm_act(x, eps=1e-5, slope=None):
+    """InstanceNorm(affine=False) of x (N, C, H, W), then LeakyReLU(slope)
+    (0.0: ReLU; None: no activation), differentiable."""
+    return InstanceNormAct.apply(x, eps, slope)
 
 
 def batch_norm(x, weight, bias, eps=1e-5):

@@ -1,4 +1,5 @@
 from .base_options import BaseOptions
 from .test_options import TestOptions
+from .train_options import TrainOptions
 
-__all__ = ["BaseOptions", "TestOptions"]
+__all__ = ["BaseOptions", "TestOptions", "TrainOptions"]

@@ -18,6 +18,9 @@ NOT_YET_PORTED = {
     'dcn_num_processes': 0,
     'dcn_process_id': 0,
     'no_pallas': False,
+    # training flags (TrainOptions)
+    'steps_per_dispatch': 1,
+    'profile_dir': '',
 }
 
 
@@ -168,7 +171,7 @@ class BaseOptions:
         self.opt.isTrain = self.isTrain
 
         for flag, default in NOT_YET_PORTED.items():
-            if getattr(self.opt, flag) != default:
+            if getattr(self.opt, flag, default) != default:
                 raise NotImplementedError(
                     '--%s is not yet ported to the PyTorch package' % flag)
         if self.opt.compute_dtype not in ('float32', 'bfloat16'):

@@ -39,6 +39,19 @@ def vec(b):
     return None if b is None else torch.from_numpy(np.asarray(b, np.float32))
 
 
+def assert_sum_close(ours, ref, rtol=1e-4, atol=1e-5):
+    """max |ours - ref| <= atol + rtol * max |ref|: for results that sum many
+    f32 products (weight gradients over every pixel), whose rounding scales
+    with the sums' magnitude rather than each entry's own."""
+    ours = np.asarray(ours.detach() if hasattr(ours, 'detach') else ours,
+                      np.float64)
+    ref = np.asarray(ref.detach() if hasattr(ref, 'detach') else ref,
+                     np.float64)
+    assert ours.shape == ref.shape, (ours.shape, ref.shape)
+    err = np.abs(ours - ref).max()
+    assert err <= atol + rtol * np.abs(ref).max(), err
+
+
 def rand(shape, seed, scale=1.0):
     return (np.random.RandomState(seed).randn(*shape) * scale).astype(
         np.float32)

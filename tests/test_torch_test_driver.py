@@ -1,6 +1,7 @@
 """The port's sampling driver, ``python -m supervised_gan_tpu_torch.test``,
 on the CPU at a small DSGAN config with checkpoints written by the JAX
-package's save_pth: the results layout of the JAX test.py, determinism
+package's save_pth (G1, G2 and the F2 that the sampler loads but does not
+run): the results layout of the JAX test.py, determinism
 under one seed, and the refusals (no silent CPU fallback, unported flags)."""
 
 import os
@@ -27,7 +28,8 @@ ARCH = ['--model', 'twostage_cycle', '--which_direction', 'AtoB',
         '--which_model_netG2', 'crn', '--ngf2', '16',
         '--upsample_mode2', 'bilinear', '--n_layers_CRN_block2', '2',
         '--noise_nc1', '4', '--noiseSize1', '2', '--noise_nc2', '4',
-        '--noiseSize2', '1', '--norm', 'instance', '--no_dropout1',
+        '--noiseSize2', '1', '--which_model_netF2', 'unet_128',
+        '--nff2', '4', '--norm', 'instance', '--no_dropout1',
         '--manualSeed', '0', '--display_id', '0']
 
 
@@ -40,7 +42,8 @@ def ckpt_dir(tmp_path_factory):
     g2 = jnn.define_G(2, 1, 16, 'crn', 'instance', False, n_layers_G=5,
                       noise_nc=4, upsample_mode='bilinear',
                       n_layers_CRN_block=2)
-    for net, label, seed in ((g1, 'G1', 0), (g2, 'G2', 1)):
+    f2 = jnn.define_G(1, 2, 4, 'unet_128', 'instance', True)
+    for net, label, seed in ((g1, 'G1', 0), (g2, 'G2', 1), (f2, 'F2', 2)):
         params = jax_params(net, seed)
         jpth.save_pth(str(d / 'dsgan_small' / ('latest_net_%s.pth' % label)),
                       net, params)
@@ -102,3 +105,12 @@ def test_unported_flag_raises(tmp_path, flag, value):
     with pytest.raises(NotImplementedError, match=flag):
         ttest.main(['--gpu_ids', '-1']
                    + _args(str(tmp_path), str(tmp_path)) + extra)
+
+
+def test_sampler_refuses_a_mismatched_f2(ckpt_dir, tmp_path):
+    """F2 is loaded with strict=True, as the JAX sampler loads it: a run
+    whose F2 width does not match the checkpoint fails."""
+    args = _args(ckpt_dir, str(tmp_path))
+    args[args.index('--nff2') + 1] = '8'
+    with pytest.raises(RuntimeError, match='F2|size mismatch'):
+        ttest.main(['--gpu_ids', '-1', '--how_many', '1'] + args)
