@@ -125,6 +125,26 @@ in_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+// normalize + activate one chunk of a plane with given statistics
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+in_norm_kernel(const T* __restrict__ x, T* __restrict__ y,
+               const float* __restrict__ mean, const float* __restrict__ rstd,
+               int HW, int chunk, int has_act, float slope) {
+  const int p = blockIdx.x;
+  const int s = blockIdx.y;
+  const float m = mean[p];
+  const float r = rstd[p];
+  const size_t base = (size_t)p * HW;
+  const int beg = s * chunk;
+  const int end = min(beg + chunk, HW);
+  for (int i = beg + threadIdx.x; i < end; i += THREADS) {
+    float z = (to_f(x[base + i]) - m) * r;
+    if (has_act && z < 0.f) z *= slope;
+    store(y + base + i, z);
+  }
+}
+
 // sum of g' and g' * x^ over one chunk of a plane
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -223,6 +243,16 @@ void launch_bwd(const void* x, const void* g, const float* mean,
 }
 
 template <typename T>
+void launch_norm(const void* x, void* y, const float* mean, const float* rstd,
+                 int NC, int HW, int splits, int has_act, float slope,
+                 cudaStream_t stream) {
+  const int chunk = (HW + splits - 1) / splits;
+  in_norm_kernel<T><<<dim3(NC, splits), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), mean, rstd, HW, chunk,
+      has_act, slope);
+}
+
+template <typename T>
 void launch(const void* x, void* y, float* partials, float* stats, int NC,
             int HW, int splits, float eps, int has_act, float slope,
             cudaStream_t stream) {
@@ -253,6 +283,28 @@ extern "C" int instance_norm_act_fwd(const void* x, void* y, float* partials,
   } else if (dtype == 1) {
     launch<__nv_bfloat16>(x, y, partials, stats, NC, HW, splits, eps, has_act,
                           slope, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The apply pass alone, with given statistics (the fused conv3x3 + IN
+// region's normalize, supervised_gan_tpu/ops/pallas/conv3x3_in.py `_norm_act`
+// :166, which runs `stream_apply`, instance_norm.py:389, the
+// `_fwd_apply_kernel` :312): y = act((x - mean) * rstd) for x, y NC planes of
+// HW elements of `dtype`, mean and rstd NC floats each.  Returns
+// cudaGetLastError() after the launch.
+extern "C" int instance_norm_apply(const void* x, void* y, const float* mean,
+                                   const float* rstd, int NC, int HW,
+                                   int splits, int has_act, float slope,
+                                   int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    launch_norm<float>(x, y, mean, rstd, NC, HW, splits, has_act, slope, s);
+  } else if (dtype == 1) {
+    launch_norm<__nv_bfloat16>(x, y, mean, rstd, NC, HW, splits, has_act,
+                               slope, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

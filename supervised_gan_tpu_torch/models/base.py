@@ -11,7 +11,9 @@ Checkpoints: ``<label>_net_<name>.pth`` per network (a CPU torch
 ``state_dict``, the format of the reference and of the JAX package), and
 the port's own full train state ``<label>_state.pt`` (parameters, Adam
 moments and steps, pools, learning rates and generator states) for an
-exact ``--continue_train``.  The JAX package's ``_state.pkl`` is a
+exact ``--continue_train``.  ``build_G`` and ``build_D_bank`` build a
+generator and a multi-scale discriminator bank from the plain or a
+suffixed (``1``, ``2``) option block.  The JAX package's ``_state.pkl`` is a
 different format and is not read.
 """
 
@@ -19,6 +21,7 @@ import os
 
 import torch
 
+from .. import nn
 from ..utils import pth as pthio
 
 
@@ -84,6 +87,58 @@ class BaseModel:
 
     def save_network(self, net, network_label, epoch_label):
         pthio.save_pth(self._net_path(network_label, epoch_label), net)
+
+    def build_G(self, in_nc, out_nc, suffix=''):
+        """define_G from the (optionally suffixed) architecture options,
+        weights drawn from the seeded init generator."""
+        o = self.opt
+
+        def g(name, default=None):
+            return getattr(o, name + suffix, default)
+
+        return nn.define_G(
+            in_nc, out_nc, g('ngf'), g('which_model_netG'), o.norm,
+            not g('no_dropout'), n_layers_G=g('n_layers_G'),
+            use_fcn=g('noiseSize') != 1, noise_nc=g('noise_nc'),
+            add_gaussian_noise=o.add_gaussian_noise,
+            upsample_mode=g('upsample_mode'),
+            n_layers_CRN_block=g('n_layers_CRN_block'),
+            share_label_weights=not g('no_share_label_block_weights'),
+            use_residual=bool(g('use_residual')),
+            n_layers_G_skip=g('n_layers_G_skip', -1),
+            generator=self.init_generator)
+
+    def build_D_bank(self, input_nc, suffix=''):
+        """The multi-scale discriminator bank of a suffixed option block, as
+        a ModuleList (reference fcgan_model.py:78)."""
+        o = self.opt
+
+        def g(name):
+            return getattr(o, name + suffix)
+
+        if not (len(g('scale_factor')) == len(g('lambda_D'))
+                == len(g('n_layers_D'))):
+            raise ValueError('--scale_factor%s, --lambda_D%s and '
+                             '--n_layers_D%s must have one length'
+                             % (suffix, suffix, suffix))
+        return torch.nn.ModuleList(
+            nn.define_D(input_nc, g('ndf'), g('which_model_netD'),
+                        n_layers_D=n_layers, norm=o.norm,
+                        use_sigmoid=g('no_lsgan'), scale_factor=scale,
+                        generator=self.init_generator)
+            for scale, n_layers in zip(g('scale_factor'), g('n_layers_D')))
+
+    def bank_apply(self, bank, x):
+        """Every discriminator of a bank on x, in the compute dtype."""
+        return [d(x, self.compute_dtype) for d in bank]
+
+    def load_bank(self, bank, label_fmt, epoch, model_dir=''):
+        for i, d in enumerate(bank):
+            self.load_network(d, label_fmt % i, epoch, model_dir)
+
+    def save_bank(self, bank, label_fmt, epoch_label):
+        for i, d in enumerate(bank):
+            self.save_network(d, label_fmt % i, epoch_label)
 
     def _state_path(self, epoch_label):
         return os.path.join(self.save_dir, '%s_state.pt' % epoch_label)

@@ -1,7 +1,7 @@
 """Model recipe factory: the string dispatch of supervised_gan_tpu/models/
 factory.py, for the recipes ported so far."""
 
-_NOT_YET = ('fcgan', 'cgan', 'cgan2', 'cgan_cycle', 'cgan2_cycle',
+_NOT_YET = ('cgan', 'cgan2', 'cgan_cycle', 'cgan2_cycle',
             'cgan_causal', 'twostage', 'twostage_factd', 'test',
             'segmentation', 'segmentation_cycle')
 
@@ -11,6 +11,9 @@ def create_model(opt):
     if opt.model == 'twostage_cycle':
         from .twostage_cycle import TwoStageCycleModel
         model = TwoStageCycleModel()
+    elif opt.model == 'fcgan':
+        from .fcgan import FCGANModel
+        model = FCGANModel()
     elif opt.model in _NOT_YET:
         raise NotImplementedError('Model [%s] not yet ported' % opt.model)
     else:

@@ -1,8 +1,8 @@
 """Shared base of the two-group (label <-> image) recipes (counterpart of
 supervised_gan_tpu/models/two_group.py): which_channel parsing into (A, B)
 groups, aligned / single set_input, the transform_1to2 pair, define_G /
-define_D plumbing from suffixed option blocks, the discriminator banks and
-the clamped (lr, lr1, lr2) linear decay."""
+the F reconstructor from a suffixed option block and the clamped (lr, lr1,
+lr2) linear decay (the G and D-bank builders are BaseModel's)."""
 
 import numpy as np
 import torch
@@ -64,26 +64,6 @@ class TwoGroupModel(BaseModel):
         self.image_paths = input['A_paths' if AtoB else 'B_paths']
 
     # ---------------------------------------------------------- networks -- #
-    def build_G(self, in_nc, out_nc, suffix=''):
-        """define_G from the (optionally suffixed) architecture options,
-        weights drawn from the seeded init generator."""
-        o = self.opt
-
-        def g(name, default=None):
-            return getattr(o, name + suffix, default)
-
-        return nn.define_G(
-            in_nc, out_nc, g('ngf'), g('which_model_netG'), o.norm,
-            not g('no_dropout'), n_layers_G=g('n_layers_G'),
-            use_fcn=g('noiseSize') != 1, noise_nc=g('noise_nc'),
-            add_gaussian_noise=o.add_gaussian_noise,
-            upsample_mode=g('upsample_mode'),
-            n_layers_CRN_block=g('n_layers_CRN_block'),
-            share_label_weights=not g('no_share_label_block_weights'),
-            use_residual=bool(g('use_residual')),
-            n_layers_G_skip=g('n_layers_G_skip', -1),
-            generator=self.init_generator)
-
     def build_F(self, in_nc, out_nc, suffix='2'):
         """The F reconstructor: nff / which_model_netF / n_layers_F with the
         stage's dropout and upsample options (reference twostage_cycle:
@@ -102,38 +82,6 @@ class TwoGroupModel(BaseModel):
             share_label_weights=not g('no_share_label_block_weights'),
             use_residual=bool(g('use_residual')),
             generator=self.init_generator)
-
-    def build_D_bank(self, input_nc, suffix=''):
-        """The multi-scale discriminator bank of a suffixed option block, as
-        a ModuleList (reference fcgan_model.py:78)."""
-        o = self.opt
-
-        def g(name):
-            return getattr(o, name + suffix)
-
-        if not (len(g('scale_factor')) == len(g('lambda_D'))
-                == len(g('n_layers_D'))):
-            raise ValueError('--scale_factor%s, --lambda_D%s and '
-                             '--n_layers_D%s must have one length'
-                             % (suffix, suffix, suffix))
-        return torch.nn.ModuleList(
-            nn.define_D(input_nc, g('ndf'), g('which_model_netD'),
-                        n_layers_D=n_layers, norm=o.norm,
-                        use_sigmoid=g('no_lsgan'), scale_factor=scale,
-                        generator=self.init_generator)
-            for scale, n_layers in zip(g('scale_factor'), g('n_layers_D')))
-
-    def bank_apply(self, bank, x):
-        """Every discriminator of a bank on x, in the compute dtype."""
-        return [d(x, self.compute_dtype) for d in bank]
-
-    def load_bank(self, bank, label_fmt, epoch, model_dir=''):
-        for i, d in enumerate(bank):
-            self.load_network(d, label_fmt % i, epoch, model_dir)
-
-    def save_bank(self, bank, label_fmt, epoch_label):
-        for i, d in enumerate(bank):
-            self.save_network(d, label_fmt % i, epoch_label)
 
     # --------------------------------------------------------------- lr -- #
     def update_learning_rate(self):

@@ -57,7 +57,6 @@ def _unported_training_flags(opt):
     return [flag for flag, on in (
         ('--use_multi_class_GAN', opt.use_multi_class_GAN),
         ('--use_fixed_noise1', opt.use_fixed_noise1),
-        ('--sequential_train', opt.sequential_train),
         ('--no_cgan', opt.no_cgan),
         ('--GAN_losses_D2 %s' % ' '.join(opt.GAN_losses_D2),
          opt.GAN_losses_D2 != ['real_fake']),
@@ -80,6 +79,8 @@ class TwoStageCycleModel(TwoGroupModel):
             self.netD1 = self.build_D_bank(opt.input_nc, suffix='1')
             self.netD2 = self.build_D_bank(opt.input_nc + opt.output_nc,
                                            suffix='2')
+        if self.isTrain and opt.sequential_train:
+            self.load_sequential()
         if not self.isTrain or opt.continue_train:
             self.load_network(self.netG1, 'G1', opt.which_epoch)
             self.load_network(self.netG2, 'G2', opt.which_epoch)
@@ -126,6 +127,23 @@ class TwoStageCycleModel(TwoGroupModel):
             else:
                 nn.print_network(net, label)
         print('-----------------------------------------------')
+
+    def load_sequential(self):
+        """--sequential_train: each net named in --which_model_to_load (G1,
+        G2, F2, D1, D2) from --pretrained_model_dir at
+        --which_epoch_sequential, strictly (twostage_cycle.py:90-102 there);
+        the others keep their init.  A --continue_train load that follows
+        overrides it."""
+        o = self.opt
+        mdir, ep = o.pretrained_model_dir, o.which_epoch_sequential
+        for label in ('G1', 'G2', 'F2'):
+            if label in o.which_model_to_load:
+                self.load_network(getattr(self, 'net' + label), label, ep,
+                                  mdir)
+        for label in ('D1', 'D2'):
+            if label in o.which_model_to_load:
+                self.load_bank(getattr(self, 'net' + label), label + '_%d',
+                               ep, mdir)
 
     def nets(self):
         nets = OrderedDict([('G1', self.netG1), ('G2', self.netG2),

@@ -20,17 +20,28 @@ Upsample in between) is skipped in the forward, as the JAX package's
 the norm removes it exactly, so it stays in the ``state_dict`` but gets no
 gradient, and Adam leaves it frozen.
 
+With ``_CONV3_IN_FUSED`` (the environment's ``SGAN_TPU_CONV3_IN=1``; off by
+default, as in the JAX package, nn/core.py:88-94 there) a
+[Conv2d 3x3 s1 p1, InstanceNorm2d, (Leaky)ReLU?] run that
+``ops.conv3x3_in_supported`` admits is ONE fused conv3x3 + IN region
+(nn/core.py:149-176 there).  Its conv bias is passed in, not skipped: the
+JAX region takes it, so it gets a gradient (sum of the norm's input
+cotangent, rounding noise) and Adam moves it.
+
 Dropout draws its masks from a ``torch.Generator`` that the model assigns
 (``set_dropout_generator``), the port's counterpart of the JAX ``Ctx`` key.
 """
 
 import math
+import os
 
 import torch
 from torch import nn
 
-from ..ops import (batch_norm, bilinear_upsample, conv2d, conv_transpose2d,
-                   instance_norm_act)
+from ..ops import (batch_norm, bilinear_upsample, conv2d, conv3x3_in_act,
+                   conv3x3_in_supported, conv_transpose2d, instance_norm_act)
+
+_CONV3_IN_FUSED = os.environ.get('SGAN_TPU_CONV3_IN', '0') == '1'
 
 
 class Conv2d(nn.Module):
@@ -158,24 +169,39 @@ class Upsample(nn.Module):
         return bilinear_upsample(x, self.scale)
 
 
+def _slope_of(layer):
+    """The activation slope a fused kernel takes for ``layer``, or None when
+    it is not ReLU / LeakyReLU."""
+    if isinstance(layer, LeakyReLU):
+        return layer.slope
+    if isinstance(layer, ReLU):
+        return 0.0
+    return None
+
+
 class Sequential(nn.Sequential):
     """Position-keyed container.  An InstanceNorm2d followed by ReLU or
     LeakyReLU runs as ONE call of the fused IN kernel with that slope
     (nn/core.py:208-216 of the JAX package), and a conv whose bias the next
-    norm cancels runs without it (``_inert_bias_at``)."""
+    norm cancels runs without it (``_inert_bias_at``).  With
+    ``_CONV3_IN_FUSED``, a conv3x3 + IN (+ act) run is one fused region
+    (``_conv3x3_in_at``)."""
 
     def forward(self, x):
         layers = list(self)
         i = 0
         while i < len(layers):
             layer = layers[i]
+            if _CONV3_IN_FUSED and self._conv3x3_in_at(i, x):
+                slope = _slope_of(layers[i + 2]) if i + 2 < len(layers) \
+                    else None
+                x = conv3x3_in_act(x, layer.weight, layer.bias,
+                                   layers[i + 1].eps, slope)
+                i += 2 if slope is None else 3
+                continue
             if isinstance(layer, InstanceNorm2d):
-                nxt = layers[i + 1] if i + 1 < len(layers) else None
-                slope = None
-                if isinstance(nxt, LeakyReLU):
-                    slope = nxt.slope
-                elif isinstance(nxt, ReLU):
-                    slope = 0.0
+                slope = _slope_of(layers[i + 1]) if i + 1 < len(layers) \
+                    else None
                 x = instance_norm_act(x, layer.eps, slope)
                 i += 1 if slope is None else 2
                 continue
@@ -186,6 +212,17 @@ class Sequential(nn.Sequential):
                 x = layer(x)
             i += 1
         return x
+
+    def _conv3x3_in_at(self, i, x):
+        """True when layer i is a 3x3 s1 p1 conv followed by InstanceNorm2d
+        whose input x the fused region takes (the JAX peephole's test)."""
+        layers = list(self)
+        layer = layers[i]
+        return (type(layer) is Conv2d and layer.kernel == 3
+                and layer.stride == 1 and layer.padding == 1
+                and i + 1 < len(layers)
+                and isinstance(layers[i + 1], InstanceNorm2d)
+                and conv3x3_in_supported(x, layer.weight))
 
     def _inert_bias_at(self, i):
         """True when layer i's bias is cancelled exactly downstream: the

@@ -5,8 +5,7 @@ Counterparts of supervised_gan_tpu/nn/generators.py: `FCGANGenerator`
 pixel output only) and the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
 `CascadedRefinementNetwork`, :265-386).  Structure, channel arithmetic,
 layer order and attribute names match, so parameter counts and state_dict
-keys line up.  Dropout in the fcgan and injected Gaussian noise are not
-ported yet and raise.
+keys line up.  Injected Gaussian noise is not ported yet and raises.
 """
 
 import torch
@@ -28,14 +27,13 @@ def activate(y, activation='tanh'):
 class FCGANGenerator(nn.Module):
     """DCGAN-style ConvTranspose stack from a noise image; BatchNorm always.
     use_fcn (noiseSize != 1): the first layer is k4 s2 p1, else k4 s1 p0.
-    Output side = noiseSize * 2^(n_layers+1) with use_fcn."""
+    Output side = noiseSize * 2^(n_layers+1) with use_fcn.  use_dropout puts
+    Dropout(0.5) between each middle layer's BatchNorm and its ReLU (not
+    after the first layer), which shifts the position keys after it."""
 
     def __init__(self, noise_nc, input_nc, ngf=64, n_layers=3,
                  use_dropout=False, use_fcn=False):
         super().__init__()
-        if use_dropout:
-            raise NotImplementedError('fcgan dropout not yet ported '
-                                      '(pass --no_dropout1)')
         nf_mult = min(2 ** (n_layers - 1), 8)
         if use_fcn:
             first = ConvTranspose2d(noise_nc, ngf * nf_mult, 4, 2, 1, bias=False)
@@ -46,7 +44,10 @@ class FCGANGenerator(nn.Module):
             prev = nf_mult
             nf_mult = min(2 ** (n_layers - n - 1), 8)
             layers += [ConvTranspose2d(ngf * prev, ngf * nf_mult, 4, 2, 1),
-                       BatchNorm2d(ngf * nf_mult), ReLU()]
+                       BatchNorm2d(ngf * nf_mult)]
+            if use_dropout:
+                layers.append(Dropout(0.5))
+            layers.append(ReLU())
         layers.append(ConvTranspose2d(ngf, input_nc, 4, 2, 1, bias=False))
         self.model = Sequential(*layers)
 

@@ -8,8 +8,8 @@ Each ``csrc/<name>.cu`` of the package compiles on its own into
 
 and is loaded with ``ctypes`` (plain C entry points: pointers, ints and the
 CUDA stream as integers; each returns ``cudaGetLastError()``).  The hash
-covers the source and the flags, so a warm run reuses the library and an
-edited source rebuilds.  ``build_all`` starts one ``nvcc`` per source, all at
+covers the source, the shared headers (``csrc/*.cuh``) and the flags, so a
+warm run reuses the library and an edited source or header rebuilds.  ``build_all`` starts one ``nvcc`` per source, all at
 once, and waits for every one of them.  Builds happen at first use, never at
 import: the CPU tests import every module on a machine without ``nvcc``.
 """
@@ -25,7 +25,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / 'csrc'
 BUILD_DIR = PKG_DIR / 'build'
-SOURCES = ('conv3x3', 'conv3x3_dw', 'conv4s2', 'convt4s2', 'instance_norm')
+SOURCES = ('conv3x3', 'conv3x3_dw', 'conv3x3_in', 'conv4s2', 'convt4s2',
+           'instance_norm')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -47,6 +48,7 @@ def nvcc_path():
 
 def library_path(name):
     src = (CSRC_DIR / ('%s.cu' % name)).read_bytes()
+    src += b''.join(p.read_bytes() for p in sorted(CSRC_DIR.glob('*.cuh')))
     digest = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / ('lib%s-%s.so' % (name, digest[:16]))
 

@@ -22,6 +22,12 @@ from .common import (CONV_SIGNATURE, DTYPE_CODES, bias_arg, check_cuda_inputs,
 def conv3x3_plain(x, w, b=None):
     """The same function as the kernel: nine shifted channel contractions
     over the zero-padded input, accumulated in float32."""
+    return conv3x3_plain_f32(x, w, b).to(x.dtype)
+
+
+def conv3x3_plain_f32(x, w, b=None):
+    """conv3x3_plain before its cast to x's dtype: the float32 accumulator,
+    bias added."""
     h, wd = x.shape[2], x.shape[3]
     xp = F.pad(x.float(), (1, 1, 1, 1))
     wf = w.float()
@@ -33,7 +39,7 @@ def conv3x3_plain(x, w, b=None):
             y = t if y is None else y + t
     if b is not None:
         y = y + b.float().view(1, -1, 1, 1)
-    return y.to(x.dtype)
+    return y
 
 
 def conv3x3(x, w, b=None):

@@ -1,8 +1,8 @@
 """Autograd Functions over the kernels: each forward is a kernel wrapper and
 each backward runs on kernels too (the JAX package's custom VJPs,
-ops/pallas/conv3x3.py:506-563, instance_norm.py:154-227 and conv4s2.py:
-190-199 there).  The wrappers take their plain versions for CPU tensors, so
-the same Functions run, differentiably, on the CPU.
+ops/pallas/conv3x3.py:506-563, instance_norm.py:154-227, conv4s2.py:190-199
+and conv3x3_in.py:187-213 there).  The wrappers take their plain versions
+for CPU tensors, so the same Functions run, differentiably, on the CPU.
 
 The weight gradients of the two k4 s2 convolutions are left to PyTorch's
 own ``torch.nn.grad.conv2d_weight``, as the JAX package left them to XLA.
@@ -13,13 +13,21 @@ from torch.nn.grad import conv2d_weight
 
 from .conv3x3 import conv3x3
 from .conv3x3_dw import conv3x3_dw
+from .conv3x3_in import conv3x3_in_stats
 from .conv4s2 import conv4s2
 from .convt4s2 import convt4s2
-from .instance_norm import instance_norm_act, instance_norm_bwd
+from .instance_norm import (instance_norm_act, instance_norm_apply,
+                            instance_norm_bwd)
 
 
 def _bias_grad(g):
     return g.float().sum(dim=(0, 2, 3)).to(g.dtype)
+
+
+def _conv3x3_dx(g, w):
+    """dx of conv3x3 for the cotangent g: the same kernel on g with w
+    flipped in (ky, kx) and in/out swapped."""
+    return conv3x3(g, w.flip((2, 3)).transpose(0, 1).contiguous())
 
 
 class Conv3x3(torch.autograd.Function):
@@ -39,12 +47,43 @@ class Conv3x3(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv3x3(g, w.flip((2, 3)).transpose(0, 1).contiguous())
+            dx = _conv3x3_dx(g, w)
         if ctx.needs_input_grad[1]:
             dw = conv3x3_dw(x, g).to(w.dtype)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = _bias_grad(g)
         return dx, dw, db
+
+
+class Conv3x3InAct(torch.autograd.Function):
+    """act(InstanceNorm(conv3x3(x, w, b))): the conv3x3_in_stats kernel, then
+    instance_norm_apply with its statistics.  The backward follows the JAX
+    region's (conv3x3_in.py:193-213 there): dconv = instance_norm_bwd(y, g,
+    mean, rstd, slope); dx = conv3x3 of dconv with the flipped weight; dW =
+    conv3x3_dw(x, dconv); db = sum dconv when the conv has a bias (rounding
+    noise, since the norm removes a constant, but not zero)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps, slope):
+        x, w = x.contiguous(), w.contiguous()
+        y, mean, rstd = conv3x3_in_stats(x, w, b, eps)
+        ctx.save_for_backward(x, w, y, mean, rstd)
+        ctx.has_bias = b is not None
+        ctx.slope = slope
+        return instance_norm_apply(y, mean, rstd, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y, mean, rstd = ctx.saved_tensors
+        dconv = instance_norm_bwd(y, g.contiguous(), mean, rstd, ctx.slope)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv3x3_dx(dconv, w)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_dw(x, dconv).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = _bias_grad(dconv)
+        return dx, dw, db, None, None
 
 
 class ConvT4s2(torch.autograd.Function):

@@ -7,7 +7,11 @@ instance_norm.py `fused_instance_norm_act` (:148): the whole-plane `_kernel`
 (:109) and the streaming `_fwd_stats_kernel` (:297) / `_fwd_apply_kernel`
 (:312), which compute one function.  `instance_norm_bwd` replaces
 `_bwd_stats_kernel` (:319) and `_bwd_apply_kernel` (:337), reached through
-`_stream_bwd` (:416).  Bound on the H100: bytes (see the source note).
+`_stream_bwd` (:416).  `instance_norm_apply` is the apply pass alone with
+given statistics: the normalize of the fused conv3x3 + IN region
+(conv3x3_in.py `_norm_act` :166 there, which runs `stream_apply`,
+instance_norm.py:389, the `_fwd_apply_kernel` :312).  Bound on the H100:
+bytes (see the source note).
 
 Layout: x, g (N, C, H, W), float32 or bfloat16; statistics per (n, c) over
 H x W in float32, as (N, C) mean and rstd = 1/sqrt(var + eps); outputs in
@@ -28,6 +32,9 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p], ctypes.c_int),
+    'instance_norm_apply': (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     'instance_norm_act_bwd': (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
@@ -55,6 +62,18 @@ def instance_norm_act_plain(x, eps=1e-5, slope=None, return_stats=False):
     if return_stats:
         return y, mean[:, :, 0, 0], rstd[:, :, 0, 0]
     return y
+
+
+def instance_norm_apply_plain(y, mean, rstd, slope=None):
+    """The same function as the apply kernel, as the JAX region's
+    `_norm_act` computes it: act((y - mean) * rstd) in float32, output in
+    y's dtype."""
+    n, c = mean.shape
+    z = ((y.float() - mean.float().view(n, c, 1, 1))
+         * rstd.float().view(n, c, 1, 1))
+    if slope is not None:
+        z = torch.where(z >= 0, z, z * slope)
+    return z.to(y.dtype)
 
 
 def instance_norm_bwd_plain(x, g, mean, rstd, slope=None):
@@ -116,6 +135,42 @@ def instance_norm_act(x, eps=1e-5, slope=None, return_stats=False):
 instance_norm_act.launches = 0
 
 
+def _check_stats(name, x, mean, rstd):
+    n, c = x.shape[:2]
+    for t in (mean, rstd):
+        if (t.shape != (n, c) or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError('%s: statistics must be contiguous float32 '
+                             '(%d, %d) on %s' % (name, n, c, x.device))
+
+
+def instance_norm_apply(y, mean, rstd, slope=None):
+    """act((y - mean) * rstd) per (n, c) plane, from (N, C) float32 mean and
+    rstd.  CPU tensors take instance_norm_apply_plain; CUDA tensors launch
+    the kernel or raise."""
+    if on_cpu(y, mean, rstd):
+        return instance_norm_apply_plain(y, mean, rstd, slope)
+    check_cuda_inputs('instance_norm_apply', y)
+    if y.dim() != 4 or y.numel() == 0:
+        raise ValueError('instance_norm_apply: y must be a non-empty (N, C, '
+                         'H, W) tensor, got %s' % (tuple(y.shape),))
+    _check_stats('instance_norm_apply', y, mean, rstd)
+    n, c, h, w = y.shape
+    out = torch.empty_like(y)
+    lib = build.load('instance_norm', _SIGNATURES)
+    with torch.cuda.device(y.device):
+        err = lib.instance_norm_apply(
+            y.data_ptr(), out.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            n * c, h * w, splits_for(h * w), *_act_args(slope),
+            DTYPE_CODES[y.dtype], stream_arg(y))
+        instance_norm_apply.launches += 1
+    raise_on_error('instance_norm_apply', err)
+    return out
+
+
+instance_norm_apply.launches = 0
+
+
 def instance_norm_bwd(x, g, mean, rstd, slope=None):
     """dx of instance_norm_act at x for the cotangent g, from the
     forward's (N, C) float32 mean and rstd.  CPU tensors take
@@ -127,13 +182,8 @@ def instance_norm_bwd(x, g, mean, rstd, slope=None):
         raise ValueError('instance_norm_bwd: x %s and g %s must be one '
                          'non-empty (N, C, H, W) shape'
                          % (tuple(x.shape), tuple(g.shape)))
+    _check_stats('instance_norm_bwd', x, mean, rstd)
     n, c, h, w = x.shape
-    for t in (mean, rstd):
-        if (t.shape != (n, c) or t.dtype != torch.float32
-                or t.device != x.device or not t.is_contiguous()):
-            raise ValueError('instance_norm_bwd: statistics must be '
-                             'contiguous float32 (%d, %d) on %s' % (n, c,
-                                                                    x.device))
     nc, hw = n * c, h * w
     splits = splits_for(hw)
     partials = torch.empty((nc * splits * 2,), dtype=torch.float32,

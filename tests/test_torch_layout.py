@@ -1,14 +1,20 @@
 """Boundary helpers shared by the port's tests (the JAX package is NHWC with
 HWIO / pre-flipped HWIO kernels; the port is NCHW with torch weight
-layouts), and a check that they map the two sides onto each other."""
+layouts), a check that they map the two sides onto each other, and the
+golden layouts of the stage-1 label GAN's networks (the files the
+sequential hand-off loads strictly)."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
+from supervised_gan_tpu import nn as jnn
 from supervised_gan_tpu.ops import conv as jconv
+from supervised_gan_tpu.utils import pth as jpth
 from supervised_gan_tpu.utils.pth import param_kind_tree
+from supervised_gan_tpu_torch import nn as tnn
 from supervised_gan_tpu_torch.ops.kernels import conv3x3, convt4s2
 
 
@@ -97,3 +103,51 @@ def test_layout_helpers_map_both_sides():
                                np.asarray(yt), rtol=1e-4, atol=1e-4)
     assert np.array_equal(nhwc(nchw(x)), x)
     assert jax.default_backend() == 'cpu'
+
+
+# The stage-1 label GAN of the README workflow (tools/recipe_r05.py:71-84):
+# G deconv ngf 32 x 5 layers from 8 noise channels, rg (2 channels); its
+# D bank n_layers 3 ndf 32 at scales 1, 2, 4, BCE (sigmoid heads).
+STAGE1_NETS = {
+    'G': (lambda m: m.define_G(2, 0, 32, 'deconv', 'instance', False,
+                               n_layers_G=5, use_fcn=True, noise_nc=8),
+          1772448),
+    'G_dropout': (lambda m: m.define_G(2, 0, 32, 'deconv', 'instance', True,
+                                       n_layers_G=5, use_fcn=True,
+                                       noise_nc=8), 1772448),
+    'D_0': (lambda m: m.define_D(2, 32, 'n_layers', 3, 'instance', True, 1),
+            693729),
+    'D_1': (lambda m: m.define_D(2, 32, 'n_layers', 3, 'instance', True, 2),
+            693729),
+    'D_2': (lambda m: m.define_D(2, 32, 'n_layers', 3, 'instance', True, 4),
+            693729),
+}
+
+
+def _torch_layout_shape(path, shape, module):
+    """The torch shape of a JAX parameter of ``module``'s layer at path."""
+    owner = dict(module.named_modules())[path.rpartition('.')[0]]
+    if path.endswith('weight') and isinstance(owner, tnn.ConvTranspose2d):
+        return (shape[2], shape[3], shape[0], shape[1])
+    if path.endswith('weight') and isinstance(owner, tnn.Conv2d):
+        return (shape[3], shape[2], shape[0], shape[1])
+    return tuple(shape)
+
+
+@pytest.mark.parametrize("name", sorted(STAGE1_NETS))
+def test_stage1_golden_layout(tmp_path, name):
+    """Keys, shapes and parameter counts of the port's net equal the JAX
+    package's parameter tree, and its state_dict keys those of the .pth
+    file the JAX package writes (what strict loading checks)."""
+    build, golden = STAGE1_NETS[name]
+    jnet, tnet = build(jnn), build(tnn)
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0))
+    flat = {'.'.join(str(k.key) for k in path): leaf.shape for path, leaf
+            in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    ours = {k: tuple(p.shape) for k, p in tnet.named_parameters()}
+    assert ours == {k: _torch_layout_shape(k, v, tnet)
+                    for k, v in flat.items()}
+    assert tnn.count_params(tnet) == jnn.count_params(shapes) == golden
+    path = str(tmp_path / 'net.pth')
+    jpth.save_pth(path, jnet, jax_params(jnet, 0))
+    assert set(tnet.state_dict()) == set(torch.load(path, weights_only=True))
