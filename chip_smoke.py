@@ -12,16 +12,23 @@ comparison is float32 against float32.
 
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every kernel from supervised_gan_tpu_torch/csrc (one nvcc per
-     source, in parallel) and print the build time and ptxas report;
+     source, in parallel) and print the build time and ptxas report; count
+     the HMMA (tensor-core) instructions in conv3x3's SASS (cuobjdump);
+     conv3x3 at ragged shapes (odd sides, 1x1, channel counts off its
+     chunk and tile sizes, N = 2) and at the 512^2 and 8^2 sites, f32 and
+     bf16 against its plain version (tolerances as in 3), each launched
+     twice with bitwise identical outputs;
   3. the forward kernels (conv3x3, convt4s2, instance_norm_act) at every
      site of the 512 px sampler (README DSGAN widths): kernel vs plain
      version in float32 (tolerance 1e-4 abs + 1e-4 rel: f32 sums in
      another order) and in bfloat16 (2e-2 abs + 2e-2 rel: one bf16 ulp of
      outputs up to ~5); the device time of the kernel, the plain version
      and one PyTorch library call of the same function (median over
-     CUDA-graph replays, so without the host's launch cost), the kernel's
-     eager call time, and the bound (bytes at 3.35 TB/s or FLOPs at
-     67 TFLOP/s f32 / 989 TFLOP/s bf16, the larger);
+     CUDA-graph replays, so without the host's launch cost; F.conv2d also
+     in bf16), the kernel's eager call time, and the bound (bytes at 3.35
+     TB/s or FLOPs, the larger: f32 convolutions at 495/3 TFLOP/s, as
+     3xTF32 on the tensor cores, with the 67 TFLOP/s CUDA-core bound kept
+     in chip_smoke.json; other f32 work at 67 TFLOP/s; bf16 at 989);
   4. the fused conv3x3 + InstanceNorm region's kernels, conv3x3_in_stats
      and instance_norm_apply, at the CRN's 64 -> 64 trunk sites, 16^2 to
      512^2 (only 512^2 passes the region's gate at its default pixel
@@ -146,10 +153,16 @@ DEV = torch.device('cuda', 0)
 ON_CARD = ['--gpu_ids', '0']
 
 # H100 SXM published peaks (NVIDIA data sheet: f32 outside the tensor cores,
-# dense bf16 on the tensor cores, HBM3 bandwidth)
+# dense bf16 and TF32 on the tensor cores, HBM3 bandwidth).  An f32
+# convolution can run on the tensor cores as 3xTF32 (three TF32 products a
+# multiply-add, f32 accuracy), so the conv kernels' f32 bound counts their
+# FLOPs at a third of the TF32 rate; the CUDA-core bound is kept beside it.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+CONV_KERNELS = ('conv3x3', 'conv3x3_dx', 'convt4s2', 'convt4s2_dx',
+                'conv3x3_dw', 'conv4s2', 'conv3x3_in_stats')
 
 # The sampler's flags: the architecture flags of the README DSGAN command
 # (README.md:60-78), sampling at 512 px.
@@ -541,32 +554,51 @@ def run_cases(cases):
         t_k16 = device_ms(lambda: c.kern(*args16))
         t_p = device_ms(lambda: c.plain(*args))
         t_l = device_ms(lambda: c.lib(*args))
+        # the bf16 yardstick where the library call is F.conv2d (row 1)
+        t_l16 = (device_ms(lambda: c.lib(*args16))
+                 if c.kernel in ('conv3x3', 'conv3x3_dx') else None)
         t_call = call_ms(lambda: c.kern(*args))
-        b_ms, b_by = bound_ms(c.flops, c.nbytes)
+        peak = PEAK_TF32X3_FLOPS if c.kernel in CONV_KERNELS \
+            else PEAK_F32_FLOPS
+        b_ms, b_by = bound_ms(c.flops, c.nbytes, peak)
+        b_cc, _ = bound_ms(c.flops, c.nbytes)
         b16_ms, b16_by = bound_ms(c.flops, c.nbytes16, PEAK_BF16_FLOPS)
         per_site.append(dict(
             kernel=c.kernel, site=c.label, count=c.count, max_abs_err=e32,
             max_abs_err_bf16=e16, ms=t_k, ms_bf16=t_k16, plain_ms=t_p,
-            library_ms=t_l, call_ms=t_call, bound_ms=b_ms, bound_by=b_by,
+            library_ms=t_l, library_ms_bf16=t_l16, call_ms=t_call,
+            bound_ms=b_ms, bound_by=b_by, bound_ms_cuda_core=b_cc,
             bound_ms_bf16=b16_ms, bound_by_bf16=b16_by, flops=c.flops,
             bytes=c.nbytes))
         print('  %-17s %-26s x%-3d err f32 %.2e bf16 %.2e | kernel %.4f ms '
-              '(bf16 %.4f, eager call %.4f) plain %.4f library %.4f bound '
-              '%.4f (%s)' % (c.kernel, c.label, c.count, e32, e16, t_k,
-                             t_k16, t_call, t_p, t_l, b_ms, b_by))
+              '(bf16 %.4f, eager call %.4f) plain %.4f library %.4f (bf16 '
+              '%s) bound %.4f (%s; bf16 %.4f)' % (
+                  c.kernel, c.label, c.count, e32, e16, t_k, t_k16, t_call,
+                  t_p, t_l, 'n/a' if t_l16 is None else '%.4f' % t_l16,
+                  b_ms, b_by, b16_ms))
         a = agg.setdefault(c.kernel, dict(
             max_abs_err=0.0, ms=0.0, ms_bf16=0.0, plain_ms=0.0,
-            library_ms=0.0, bound_ms=0.0, bound_ms_bf16=0.0, flops=0.0,
-            bytes=0.0, bytes16=0.0, sites=0))
+            library_ms=0.0, library_ms_bf16=0.0, bound_ms=0.0,
+            bound_ms_cuda_core=0.0, bound_ms_bf16=0.0, flops=0.0, bytes=0.0,
+            bytes16=0.0, sites=0, peak_flops=peak))
         a['max_abs_err'] = max(a['max_abs_err'], e32)
         for k, v in (('ms', t_k), ('ms_bf16', t_k16), ('plain_ms', t_p),
-                     ('library_ms', t_l), ('bound_ms', b_ms),
+                     ('library_ms', t_l), ('library_ms_bf16', t_l16 or 0.0),
+                     ('bound_ms', b_ms), ('bound_ms_cuda_core', b_cc),
                      ('bound_ms_bf16', b16_ms), ('flops', c.flops),
                      ('bytes', c.nbytes), ('bytes16', c.nbytes16)):
             a[k] += v * c.count
         a['sites'] += c.count
-    for a in agg.values():
-        _, a['bound_by'] = bound_ms(a['flops'], a['bytes'])
+    for name, a in agg.items():
+        _, a['bound_by'] = bound_ms(a['flops'], a['bytes'], a['peak_flops'])
+        print('  %-17s over %d launches: kernel f32 %.4f ms, bf16 %.4f; '
+              'library f32 %.4f%s; bound f32 %.4f (%s), bf16 %.4f; f32 '
+              'CUDA-core bound %.4f' % (
+                  name, a['sites'], a['ms'], a['ms_bf16'], a['library_ms'],
+                  ', bf16 %.4f' % a['library_ms_bf16']
+                  if name in ('conv3x3', 'conv3x3_dx') else '',
+                  a['bound_ms'], a['bound_by'], a['bound_ms_bf16'],
+                  a['bound_ms_cuda_core']))
     return per_site, agg
 
 
@@ -589,9 +621,10 @@ def phase_region():
     gen = torch.Generator(device=DEV).manual_seed(4321)
     per_site = []
     agg = {name: dict(max_abs_err=0.0, ms=0.0, ms_bf16=0.0, plain_ms=0.0,
-                      library_ms=None, bound_ms=0.0, flops=0.0, bytes=0.0,
-                      sites=0)
-           for name in ('conv3x3_in_stats', 'instance_norm_apply')}
+                      library_ms=None, bound_ms=0.0, bound_ms_bf16=0.0,
+                      flops=0.0, bytes=0.0, sites=0, peak_flops=peak)
+           for name, peak in (('conv3x3_in_stats', PEAK_TF32X3_FLOPS),
+                              ('instance_norm_apply', PEAK_F32_FLOPS))}
     for side in REGION_SIDES:
         site = '64->64 @%d^2' % side
         count = int(side * side >= ops_conv.CONV3_MIN_PIXELS)
@@ -653,12 +686,16 @@ def phase_region():
         n_out = 64.0 * side * side
         flops = 2.0 * 9 * 64 * n_out + 3.0 * n_out
         nbytes = 4.0 * (2 * n_out + 64 * 64 * 9 + 64 + 2 * 64)
-        b_ms, b_by = bound_ms(flops, nbytes)
+        nbytes16 = 2.0 * (2 * n_out + 64 * 64 * 9) + 4.0 * (64 + 2 * 64)
+        b_ms, b_by = bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)
+        b16_ms, _ = bound_ms(flops, nbytes16, PEAK_BF16_FLOPS)
         a_flops, a_bytes = 3.0 * n_out, 8.0 * n_out + 8.0 * 64
         a_ms, a_by = bound_ms(a_flops, a_bytes)
+        a16_ms, _ = bound_ms(a_flops, 4.0 * n_out + 8.0 * 64, PEAK_BF16_FLOPS)
         per_site.append(dict(kernel='conv3x3_in_stats', site=site,
                              count=count, errors=errs, ms=t,
                              bound_ms=b_ms, bound_by=b_by,
+                             bound_ms_bf16=b16_ms,
                              apply_bound_ms=a_ms, apply_bound_by=a_by))
         print('  region %-14s x%d err f32 %s bf16 %s | stats kernel %.4f ms '
               '(bf16 %.4f) plain %.4f conv3x3 %.4f bound %.4f (%s); apply '
@@ -672,19 +709,96 @@ def phase_region():
                 ('conv3x3_in_stats', dict(
                     max_abs_err=errs['f32']['y'], ms=t['kernel'],
                     ms_bf16=t['kernel_bf16'], plain_ms=t['plain'],
-                    bound_ms=b_ms, flops=flops, bytes=nbytes)),
+                    bound_ms=b_ms, bound_ms_bf16=b16_ms, flops=flops,
+                    bytes=nbytes)),
                 ('instance_norm_apply', dict(
                     max_abs_err=errs['f32']['apply'], ms=t['apply'],
                     ms_bf16=t['apply_bf16'], plain_ms=t['apply_plain'],
-                    bound_ms=a_ms, flops=a_flops, bytes=a_bytes))):
+                    bound_ms=a_ms, bound_ms_bf16=a16_ms, flops=a_flops,
+                    bytes=a_bytes))):
             a = agg[name]
             a['max_abs_err'] = max(a['max_abs_err'], vals.pop('max_abs_err'))
             for k, v in vals.items():
                 a[k] += v * count
             a['sites'] += count
     for a in agg.values():
-        _, a['bound_by'] = bound_ms(a['flops'], a['bytes'])
+        _, a['bound_by'] = bound_ms(a['flops'], a['bytes'], a['peak_flops'])
     return per_site, agg
+
+
+# ------------------------------------ conv3x3's tensor-core route, row 1 -- #
+
+# (N, Ci, Co, H, W): odd sides, one pixel, channel counts off the chunk
+# (16 bf16 / 8 f32 channels) and the 64-channel N tile, several N tiles;
+# the last two take the kernel's 16-byte copies (W a multiple of 8, Ci of
+# 8) with sides off its 8 x 16 pixel tile
+RAGGED_CONV3 = ([(2, ci, co, h, w) for ci, co in ((3, 5), (17, 33), (1, 64),
+                                                   (64, 1))
+                 for h, w in ((7, 13), (1, 1))]
+                + [(2, 130, 70, 21, 19), (2, 24, 40, 10, 24),
+                   (2, 64, 72, 9, 40)])
+# two runs of one launch must agree bitwise: the 512^2 trunk site and the
+# smallest sampler site
+IDENTITY_CONV3 = [(1, 64, 64, 512, 512), (1, 10, 64, 8, 8)]
+
+
+def phase_conv3x3_shapes():
+    """conv3x3 at ragged shapes and at IDENTITY_CONV3, f32 (1e-4) and bf16
+    (2e-2) against conv3x3_plain, each launched twice: the two outputs must
+    be identical.  Returns the worst errors."""
+    gen = torch.Generator(device=DEV).manual_seed(99)
+    worst = {'f32': 0.0, 'bf16': 0.0}
+    for n, ci, co, h, w in RAGGED_CONV3 + IDENTITY_CONV3:
+        x = randn((n, ci, h, w), gen)
+        wt = randn((co, ci, 3, 3), gen, (9 * ci) ** -0.5)
+        b = randn((co,), gen, 0.1)
+        for tag, dt, tol in (('f32', torch.float32, 1e-4),
+                             ('bf16', torch.bfloat16, 2e-2)):
+            args = (x.to(dt), wt.to(dt), b)
+            y, again = K.conv3x3(*args), K.conv3x3(*args)
+            ref = K.conv3x3_plain(*args)
+            torch.cuda.synchronize()
+            site = '%d x %d->%d @%dx%d %s' % (n, ci, co, h, w, tag)
+            check(y.shape == ref.shape and y.dtype == dt
+                  and bool(torch.isfinite(y).all()),
+                  'conv3x3 %s: bad output' % site)
+            check(within(y, ref, tol), 'conv3x3 %s: max abs err %.3g'
+                  % (site, err(y, ref)))
+            check(torch.equal(y, again), 'conv3x3 %s: two runs differ' % site)
+            worst[tag] = max(worst[tag], err(y, ref))
+            print('  conv3x3 %-26s err %.2e, two runs identical'
+                  % (site, err(y, ref)))
+    return worst
+
+
+def _cuobjdump():
+    """cuobjdump from the CUDA toolkit, else the copy in triton's package."""
+    cand = [os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump'),
+            shutil.which('cuobjdump') or '']
+    try:
+        import triton
+        cand.append(os.path.join(os.path.dirname(triton.__file__), 'backends',
+                                 'nvidia', 'bin', 'cuobjdump'))
+    except ImportError:
+        pass
+    found = [c for c in cand if c and os.path.exists(c)]
+    check(bool(found), 'no cuobjdump in the CUDA toolkit or triton')
+    return found[0]
+
+
+def sass_hmma(name):
+    """Tensor-core instructions in the SASS of csrc/<name>.cu's library:
+    {HMMA opcode with its shape and types: count}."""
+    sass = subprocess.run([_cuobjdump(), '-sass',
+                           str(build.library_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts = collections.Counter()
+    for line in sass.splitlines():
+        for tok in line.split():
+            if tok.startswith('HMMA'):
+                counts[tok] += 1
+    return dict(counts)
 
 
 # ------------------------------------------------ the train step's sites -- #
@@ -1106,7 +1220,7 @@ def profile_rows(run, n, trace_name):
 
 # device kernel symbols of each wrapper, as the profiler names them
 KERNEL_SYMBOLS = {
-    'conv3x3': ('conv3x3_kernel',), 'convt4s2': ('convt4s2_kernel',),
+    'conv3x3': ('conv3x3_tc_kernel',), 'convt4s2': ('convt4s2_kernel',),
     'instance_norm_act': ('in_stats_kernel', 'in_apply_kernel'),
     'conv3x3_dw': ('dw_partial_kernel', 'dw_reduce_kernel'),
     'instance_norm_bwd': ('in_bwd_stats_kernel', 'in_bwd_apply_kernel'),
@@ -1518,6 +1632,14 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('  %s: %s' % (name, line.strip()))
 
+    hmma = sass_hmma('conv3x3')
+    print('conv3x3 SASS: %d HMMA instructions %s'
+          % (sum(hmma.values()), hmma))
+    check(sum(hmma.values()) > 0, 'conv3x3: no HMMA in its SASS')
+
+    print('== conv3x3 at ragged shapes, and two runs of one launch')
+    conv3_shapes = phase_conv3x3_shapes()
+
     print('== forward kernels vs plain versions at the 512 px sampler sites')
     per_site, agg = run_cases(sampler_cases())
 
@@ -1626,6 +1748,7 @@ def main():
             library_ms=a['library_ms']))
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   sites=per_site, region_sites=per_site_r, kernels=kernels,
+                  conv3x3_hmma=hmma, conv3x3_shapes=conv3_shapes,
                   kernel_sums=agg, launches_per_step=LAUNCHES_PER_STEP,
                   stage1_launches_per_step=STAGE1_PER_STEP,
                   train_sites={k: {repr(s): c for s, c in v.items()}
