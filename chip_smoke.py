@@ -13,19 +13,24 @@ comparison is float32 against float32.
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every kernel from supervised_gan_tpu_torch/csrc (one nvcc per
      source, in parallel) and print the build time and ptxas report; count
-     the HMMA (tensor-core) instructions in conv3x3's SASS (cuobjdump);
+     the HMMA (tensor-core) instructions in conv3x3's and conv3x3_dw's SASS
+     (cuobjdump; both need bf16 and TF32 ones) and their ptxas spills;
      conv3x3 at ragged shapes (odd sides, 1x1, channel counts off its
      chunk and tile sizes, N = 2) and at the 512^2 and 8^2 sites, f32 and
      bf16 against its plain version (tolerances as in 3), each launched
-     twice with bitwise identical outputs;
+     twice with bitwise identical outputs; conv3x3_dw likewise at ragged
+     shapes (Ci 1, 2, 5, 10, 17 x Co 1, 7, 64, 65, odd sides, N = 2) and at
+     64 -> 64 on 512^2, within its tolerance of 6, its split of the pixel
+     sum checked against ops/kernels/conv3x3_dw.py tc_plan;
   3. the forward kernels (conv3x3, convt4s2, instance_norm_act) at every
      site of the 512 px sampler (README DSGAN widths): kernel vs plain
      version in float32 (tolerance 1e-4 abs + 1e-4 rel: f32 sums in
      another order) and in bfloat16 (2e-2 abs + 2e-2 rel: one bf16 ulp of
      outputs up to ~5); the device time of the kernel, the plain version
      and one PyTorch library call of the same function (median over
-     CUDA-graph replays, so without the host's launch cost; F.conv2d also
-     in bf16), the kernel's eager call time, and the bound (bytes at 3.35
+     CUDA-graph replays, so without the host's launch cost; the
+     convolutions' library calls also in bf16), the kernel's eager call
+     time, and the bound (bytes at 3.35
      TB/s or FLOPs, the larger: f32 convolutions at 495/3 TFLOP/s, as
      3xTF32 on the tensor cores, with the 67 TFLOP/s CUDA-core bound kept
      in chip_smoke.json; other f32 work at 67 TFLOP/s; bf16 at 989);
@@ -42,13 +47,15 @@ comparison is float32 against float32.
      DSGAN configuration at 512 px: every call of the conv3x3_dw,
      instance_norm_bwd and conv4s2 kernels, of the four autograd Functions
      and of the two dx paths (conv3x3 on the cotangent, convt4s2 as the
-     k4 s2 conv's dx), by shape, with its count per step;
+     k4 s2 conv's dx) and convt4s2's calls in F2's forward, by shape, with
+     its count per step;
   6. kernels A (conv3x3_dw), B (instance_norm_bwd) and C (conv4s2) at every
-     recorded site, and conv3x3 and convt4s2 at their dx sites, as in 3;
-     conv3x3_dw's tolerance is 1e-4 (f32 and bf16 inputs; 2e-5 absolute)
-     of the largest |dW|, since each entry sums every pixel.  Library
-     calls: torch.nn.grad.conv2d_weight, aten's native_batch_norm_backward
-     after the activation's backward, F.conv2d, F.conv_transpose2d;
+     recorded site, conv3x3 and convt4s2 at their dx sites and convt4s2 at
+     F2's 21 forward sites, as in 3; conv3x3_dw's tolerance is 1e-4 (f32
+     and bf16 inputs; 2e-5 absolute) of the largest |dW|, since each entry
+     sums every pixel.  Library calls: torch.nn.grad.conv2d_weight, aten's
+     native_batch_norm_backward after the activation's backward, F.conv2d,
+     F.conv_transpose2d, each convolution's also on the bf16 inputs;
   7. every autograd Function (Conv3x3, ConvT4s2, Conv4s2, InstanceNormAct)
      at every recorded site, and Conv3x3InAct at the region's 512^2 site,
      so every kernel at every shape the train step gives it: its output
@@ -104,7 +111,9 @@ results/chip_smoke.
 
 import collections
 import contextlib
+import importlib
 import json
+import re
 import os
 import shutil
 import statistics
@@ -132,6 +141,7 @@ from supervised_gan_tpu_torch.ops import conv as ops_conv  # noqa: E402
 from supervised_gan_tpu_torch.ops import kernels as K  # noqa: E402
 from supervised_gan_tpu_torch.ops import norm as ops_norm  # noqa: E402
 from supervised_gan_tpu_torch.ops.kernels import build  # noqa: E402
+from supervised_gan_tpu_torch.ops.kernels import common  # noqa: E402
 from supervised_gan_tpu_torch.ops.kernels import functions  # noqa: E402
 from supervised_gan_tpu_torch.options import TrainOptions  # noqa: E402
 from supervised_gan_tpu_torch.utils import pth  # noqa: E402
@@ -162,7 +172,7 @@ PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 CONV_KERNELS = ('conv3x3', 'conv3x3_dx', 'convt4s2', 'convt4s2_dx',
-                'conv3x3_dw', 'conv4s2', 'conv3x3_in_stats')
+                'convt4s2_f2', 'conv3x3_dw', 'conv4s2', 'conv3x3_in_stats')
 
 # The sampler's flags: the architecture flags of the README DSGAN command
 # (README.md:60-78), sampling at 512 px.
@@ -554,9 +564,10 @@ def run_cases(cases):
         t_k16 = device_ms(lambda: c.kern(*args16))
         t_p = device_ms(lambda: c.plain(*args))
         t_l = device_ms(lambda: c.lib(*args))
-        # the bf16 yardstick where the library call is F.conv2d (row 1)
+        # the bf16 yardstick of every convolution (cuDNN on the tensor
+        # cores), the same library call on the bf16 inputs
         t_l16 = (device_ms(lambda: c.lib(*args16))
-                 if c.kernel in ('conv3x3', 'conv3x3_dx') else None)
+                 if c.kernel in CONV_KERNELS else None)
         t_call = call_ms(lambda: c.kern(*args))
         peak = PEAK_TF32X3_FLOPS if c.kernel in CONV_KERNELS \
             else PEAK_F32_FLOPS
@@ -596,7 +607,7 @@ def run_cases(cases):
               'CUDA-core bound %.4f' % (
                   name, a['sites'], a['ms'], a['ms_bf16'], a['library_ms'],
                   ', bf16 %.4f' % a['library_ms_bf16']
-                  if name in ('conv3x3', 'conv3x3_dx') else '',
+                  if name in CONV_KERNELS else '',
                   a['bound_ms'], a['bound_by'], a['bound_ms_bf16'],
                   a['bound_ms_cuda_core']))
     return per_site, agg
@@ -771,6 +782,71 @@ def phase_conv3x3_shapes():
     return worst
 
 
+# conv3x3_dw's tensor-core route (rows 2-3): (N, Ci, Co, H, W) with input
+# channels off its 8-channel fragments and its 32 / 64-channel blocks,
+# output channels off its m16 fragments and its 64-channel block, and odd
+# sides (the kernel's single-value staging); two runs of one launch must
+# agree bitwise, there and at the 512^2 trunk site
+RAGGED_DW = [(2, ci, co, h, w) for ci in (1, 2, 5, 10, 17)
+             for co in (1, 7, 64, 65) for h, w in ((7, 13), (9, 5))]
+IDENTITY_DW = [(1, 64, 64, 512, 512)]
+DW_MODULE = importlib.import_module(
+    'supervised_gan_tpu_torch.ops.kernels.conv3x3_dw')
+
+
+def check_dw_plan(n, ci, co, h, w):
+    """The kernel's split of the pixel sum (conv3x3_dw_splits) is the one
+    ops/kernels/conv3x3_dw.py tc_plan describes, which the CPU rehearsal in
+    tests/test_torch_conv3x3_dw_tc.py emulates, in both dtypes."""
+    lib = build.load('conv3x3_dw', DW_MODULE._SIGNATURES)
+    for dt, code in common.DTYPE_CODES.items():
+        ours = lib.conv3x3_dw_splits(n, ci, co, h, w, code)
+        plan = len(DW_MODULE.tc_plan(n, ci, co, h, w, dt)[1])
+        check(ours == plan, 'conv3x3_dw %s %s: the kernel splits the pixels '
+              '%d ways, tc_plan %d' % ((n, ci, co, h, w), dt, ours, plan))
+
+
+def phase_conv3x3_dw_shapes():
+    """conv3x3_dw at RAGGED_DW and IDENTITY_DW, f32 and bf16 inputs, against
+    conv3x3_dw_plain within 1e-4 of the largest |dW| (within_sum), each
+    launched twice: the two outputs must be identical.  Returns the worst
+    errors relative to the largest |dW|."""
+    gen = torch.Generator(device=DEV).manual_seed(98)
+    worst = {'f32': 0.0, 'bf16': 0.0}
+    for n, ci, co, h, w in RAGGED_DW + IDENTITY_DW:
+        check_dw_plan(n, ci, co, h, w)
+        x = randn((n, ci, h, w), gen)
+        g = randn((n, co, h, w), gen)
+        site_err = 0.0
+        for tag, dt in (('f32', torch.float32), ('bf16', torch.bfloat16)):
+            xa, ga = x.to(dt), g.to(dt)
+            dw, again = K.conv3x3_dw(xa, ga), K.conv3x3_dw(xa, ga)
+            ref = K.conv3x3_dw_plain(xa, ga)
+            torch.cuda.synchronize()
+            site = '%d x %d->%d @%dx%d %s' % (n, ci, co, h, w, tag)
+            check(dw.shape == (co, ci, 3, 3) and dw.dtype == torch.float32
+                  and bool(torch.isfinite(dw).all()),
+                  'conv3x3_dw %s: bad output' % site)
+            rel = err(dw, ref) / float(ref.abs().max())
+            check(within_sum(dw, ref, 1e-4), 'conv3x3_dw %s: off by %.3g of '
+                  'the largest |dW|' % (site, rel))
+            check(torch.equal(dw, again), 'conv3x3_dw %s: two runs differ'
+                  % site)
+            worst[tag] = max(worst[tag], rel)
+            site_err = max(site_err, rel)
+        print('  conv3x3_dw %-24s err %.2e of the largest |dW|, two runs '
+              'identical' % ('%d x %d->%d @%dx%d' % (n, ci, co, h, w),
+                             site_err))
+    return worst
+
+
+def ptxas_spills(name):
+    """Bytes of spill stores and loads ptxas reports for csrc/<name>.cu
+    (from the build log kept beside the library)."""
+    log = build.library_path(name).with_suffix('.log').read_text()
+    return sum(int(b) for b in re.findall(r'(\d+) bytes spill', log))
+
+
 def _cuobjdump():
     """cuobjdump from the CUDA toolkit, else the copy in triton's package."""
     cand = [os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump'),
@@ -832,7 +908,8 @@ def record_train_sites():
     the Functions wrapped to count their calls by signature."""
     books = {k: collections.Counter() for k in (
         'conv3x3_dw', 'instance_norm_bwd', 'conv4s2', 'Conv3x3', 'ConvT4s2',
-        'Conv4s2', 'InstanceNormAct', 'conv3x3_dx', 'conv4s2_dx')}
+        'Conv4s2', 'InstanceNormAct', 'conv3x3_dx', 'conv4s2_dx',
+        'convt4s2_f2')}
     saved = []
 
     def patch(obj, name, new):
@@ -852,12 +929,15 @@ def record_train_sites():
         functions._conv3x3_dx, lambda g, w: (_shape(g), _shape(w)),
         books['conv3x3_dx']))
     # convt4s2 runs in ConvT4s2's forward and as Conv4s2's dx: a call made
-    # outside a ConvT4s2 forward is a dx
-    in_convt_forward = []
+    # outside a ConvT4s2 forward is a dx; one inside F2's forward is one of
+    # F2's decoder sites
+    in_convt_forward, in_f2 = [], []
 
     def convt4s2(x, w, b=None):
         if not in_convt_forward:
             books['conv4s2_dx'][(_shape(x), _shape(w))] += 1
+        elif in_f2:
+            books['convt4s2_f2'][(_shape(x), _shape(w), b is not None)] += 1
         return K.convt4s2(x, w, b)
     patch(functions, 'convt4s2', convt4s2)
 
@@ -886,6 +966,15 @@ def record_train_sites():
     try:
         model = create_model(train_opt(['--compute_dtype', 'float32',
                                         '--name', TRAIN_NAME + '_sites']))
+        f2_forward = model.netF2.forward
+
+        def f2_recorded(*args, **kw):
+            in_f2.append(True)
+            try:
+                return f2_forward(*args, **kw)
+            finally:
+                in_f2.pop()
+        model.netF2.forward = f2_recorded
         model.set_input(fixed_batch())
         model.optimize_parameters()
         torch.cuda.synchronize()
@@ -970,6 +1059,23 @@ def train_cases(books):
             count, K.conv4s2, K.conv4s2_plain,
             lambda x, w_, b: F.conv2d(x, w_, b, 2, 1),
             2.0 * co * ci * 16 * n * ho * wo, 4.0 * elems + 4.0 * co * has_b,
+            2.0 * elems + 4.0 * co * has_b, mk, within))
+    # F2's transposed convs (its decoder, 3 forwards a step), against
+    # F.conv_transpose2d
+    for (xs, ws, has_b), count in sorted(books['convt4s2_f2'].items()):
+        n, ci, h, w = xs
+        co = ws[1]
+
+        def mk(gen, xs=xs, ws=ws, has_b=has_b):
+            return (randn(xs, gen), randn(ws, gen, (4 * ws[0]) ** -0.5),
+                    randn((ws[1],), gen, 0.1) if has_b else None)
+        elems = n * ci * h * w + ci * co * 16 + n * co * 4 * h * w
+        cases.append(Case(
+            'convt4s2_f2', '%d->%d @%dx%d%s' % (ci, co, h, w,
+                                              ' +b' if has_b else ''),
+            count, K.convt4s2, K.convt4s2_plain,
+            lambda x, w_, b: F.conv_transpose2d(x, w_, b, 2, 1),
+            2.0 * co * 4 * h * w * ci * 4 * n, 4.0 * elems + 4.0 * co * has_b,
             2.0 * elems + 4.0 * co * has_b, mk, within))
     # the dx launches of the conv3x3 and convt4s2 wrappers, against the
     # library call of the same function (for PERF.md's rows 1 and 4)
@@ -1222,7 +1328,7 @@ def profile_rows(run, n, trace_name):
 KERNEL_SYMBOLS = {
     'conv3x3': ('conv3x3_tc_kernel',), 'convt4s2': ('convt4s2_kernel',),
     'instance_norm_act': ('in_stats_kernel', 'in_apply_kernel'),
-    'conv3x3_dw': ('dw_partial_kernel', 'dw_reduce_kernel'),
+    'conv3x3_dw': ('dw_tc_kernel', 'dw_reduce_kernel'),
     'instance_norm_bwd': ('in_bwd_stats_kernel', 'in_bwd_apply_kernel'),
     'conv4s2': ('conv4s2_kernel', 'conv4s2_reduce_kernel'),
     'conv3x3_in_stats': ('conv3x3_in_kernel', 'conv3x3_in_fold_kernel'),
@@ -1632,13 +1738,20 @@ def main():
             if 'registers' in line or 'spill' in line:
                 print('  %s: %s' % (name, line.strip()))
 
-    hmma = sass_hmma('conv3x3')
-    print('conv3x3 SASS: %d HMMA instructions %s'
-          % (sum(hmma.values()), hmma))
-    check(sum(hmma.values()) > 0, 'conv3x3: no HMMA in its SASS')
+    hmma = {}
+    for name in ('conv3x3', 'conv3x3_dw'):
+        hmma[name] = sass_hmma(name)
+        print('%s SASS: %d HMMA instructions %s; ptxas spills %d bytes'
+              % (name, sum(hmma[name].values()), hmma[name],
+                 ptxas_spills(name)))
+        for op in ('HMMA.16816.F32.BF16', 'HMMA.1688.F32.TF32'):
+            check(hmma[name].get(op, 0) > 0, '%s: no %s in its SASS'
+                  % (name, op))
 
     print('== conv3x3 at ragged shapes, and two runs of one launch')
     conv3_shapes = phase_conv3x3_shapes()
+    print('== conv3x3_dw at ragged shapes, and two runs of one launch')
+    dw_shapes = phase_conv3x3_dw_shapes()
 
     print('== forward kernels vs plain versions at the 512 px sampler sites')
     per_site, agg = run_cases(sampler_cases())
@@ -1655,12 +1768,15 @@ def main():
     dx_per_step = {
         'conv3x3_dx': LAUNCHES_PER_STEP['conv3x3'] - 2 * G2_CONV3,
         'conv4s2_dx': (LAUNCHES_PER_STEP['convt4s2'] - G1_CONVT
-                       - 3 * F2_UP)}
+                       - 3 * F2_UP),
+        'convt4s2_f2': 3 * F2_UP}
     for k, n in list(dx_per_step.items()) + [
             (k, LAUNCHES_PER_STEP[k])
             for k in ('conv3x3_dw', 'instance_norm_bwd', 'conv4s2')]:
         check(sum(books[k].values()) == n, 'recorded %s calls %d, expected '
               '%d a step' % (k, sum(books[k].values()), n))
+    for (xs, co) in books['conv3x3_dw']:
+        check_dw_plan(xs[0], xs[1], co, xs[2], xs[3])
 
     print('== kernels A, B, C, and conv3x3 and convt4s2 as dx, vs plain '
           'versions at the train step\'s sites')
@@ -1748,7 +1864,8 @@ def main():
             library_ms=a['library_ms']))
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   sites=per_site, region_sites=per_site_r, kernels=kernels,
-                  conv3x3_hmma=hmma, conv3x3_shapes=conv3_shapes,
+                  hmma=hmma, conv3x3_shapes=conv3_shapes,
+                  conv3x3_dw_shapes=dw_shapes,
                   kernel_sums=agg, launches_per_step=LAUNCHES_PER_STEP,
                   stage1_launches_per_step=STAGE1_PER_STEP,
                   train_sites={k: {repr(s): c for s, c in v.items()}

@@ -4,8 +4,10 @@ CUDA kernel (csrc/conv3x3_dw.cu) and its plain PyTorch version.
 Replaces supervised_gan_tpu/ops/pallas/conv3x3.py `_dw_kernel` (:226,
 through `_conv3x3_dw` :305) and `_dwT_kernel` (:339, through
 `_conv3x3_dw_v2` :420), which compute one function for the TPU's banded
-128-lane layout.  This kernel takes any N, Ci, Co, H and W.  Bound on the
-H100: arithmetic (see the source note).
+128-lane layout.  This kernel takes any N, Ci, Co, H and W: a tensor-core
+GEMM over the pixels, split into ranges of pixel tiles whose partial sums
+are folded in a fixed order (`tc_plan` says which).  Bound on the H100:
+arithmetic (see the source note).
 
 Layout: x (N, Ci, H, W) and g (N, Co, H, W) of one dtype (float32 or
 bfloat16); dW (Co, Ci, 3, 3) float32, the layout of torch.nn.Conv2d's
@@ -23,9 +25,35 @@ from .common import DTYPE_CODES, check_cuda_inputs, on_cpu, raise_on_error, \
 
 _SIGNATURES = {
     'conv3x3_dw_workspace': ([ctypes.c_int] * 5, ctypes.c_longlong),
+    'conv3x3_dw_splits': ([ctypes.c_int] * 6, ctypes.c_int),
     'conv3x3_dw': ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p], ctypes.c_int),
 }
+
+# csrc/conv3x3_dw.cu's tiling: pixel tiles of TILE_ROWS x TILE_COLS, blocks
+# of CO_BLOCK output channels x CI_BLOCK input channels, the pixel sum split
+# to fill SMS multiprocessors (BLOCKS[dtype] blocks each), at most one split
+# a tile.
+TILE_ROWS, TILE_COLS, CO_BLOCK, CI_BLOCK, SMS = 4, 32, 64, 32, 132
+BLOCKS = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def tc_plan(n, ci, co, h, w, dtype):
+    """The kernel's split of the pixel sum for these shapes: (tile origins
+    (image, row, column) in the kernel's order, [(first, end) tile of each
+    split]).  Split s sums its tiles in order (where a block's output
+    channels number 32 or fewer, as two sums over halves of each tile, then
+    added); the splits' sums are then added in order s = 0, 1, ... starting
+    from 0, unless there is one split, whose sum is dW."""
+    tiles_w = -(-w // TILE_COLS)
+    tiles_h = -(-h // TILE_ROWS)
+    tiles = [(i, ty * TILE_ROWS, tx * TILE_COLS) for i in range(n)
+             for ty in range(tiles_h) for tx in range(tiles_w)]
+    base = -(-co // CO_BLOCK) * -(-ci // CI_BLOCK)
+    splits = max(1, min(-(-(SMS * BLOCKS[dtype]) // base), len(tiles)))
+    bounds = [(len(tiles) * s // splits, len(tiles) * (s + 1) // splits)
+              for s in range(splits)]
+    return tiles, bounds
 
 
 def conv3x3_dw_plain(x, g):
