@@ -13,23 +13,28 @@ comparison is float32 against float32.
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every kernel from supervised_gan_tpu_torch/csrc (one nvcc per
      source, in parallel) and print the build time and ptxas report; count
-     the HMMA (tensor-core) instructions in conv3x3's and conv3x3_dw's SASS
-     (cuobjdump; both need bf16 and TF32 ones) and their ptxas spills;
+     the HMMA (tensor-core) instructions in conv3x3's, conv3x3_dw's and
+     conv4s2's SASS (cuobjdump; each needs bf16 and TF32 ones) and their
+     ptxas spills;
      conv3x3 at ragged shapes (odd sides, 1x1, channel counts off its
      chunk and tile sizes, N = 2) and at the 512^2 and 8^2 sites, f32 and
      bf16 against its plain version (tolerances as in 3), each launched
      twice with bitwise identical outputs; conv3x3_dw likewise at ragged
      shapes (Ci 1, 2, 5, 10, 17 x Co 1, 7, 64, 65, odd sides, N = 2) and at
      64 -> 64 on 512^2, within its tolerance of 6, its split of the pixel
-     sum checked against ops/kernels/conv3x3_dw.py tc_plan;
+     sum checked against ops/kernels/conv3x3_dw.py tc_plan; conv4s2 likewise
+     at ragged shapes (Ci 1, 2, 3, 17 x Co 5, 70, odd sides, N = 2) and at
+     128 -> 256 on 128^2, within the tolerances of 3, its split of the
+     input channels checked against ops/kernels/conv4s2.py tc_plan there and
+     at every train site;
   3. the forward kernels (conv3x3, convt4s2, instance_norm_act) at every
      site of the 512 px sampler (README DSGAN widths): kernel vs plain
      version in float32 (tolerance 1e-4 abs + 1e-4 rel: f32 sums in
      another order) and in bfloat16 (2e-2 abs + 2e-2 rel: one bf16 ulp of
      outputs up to ~5); the device time of the kernel, the plain version
      and one PyTorch library call of the same function (median over
-     CUDA-graph replays, so without the host's launch cost; the
-     convolutions' library calls also in bf16), the kernel's eager call
+     CUDA-graph replays, so without the host's launch cost; every library
+     call also on the bf16 inputs), the kernel's eager call
      time, and the bound (bytes at 3.35
      TB/s or FLOPs, the larger: f32 convolutions at 495/3 TFLOP/s, as
      3xTF32 on the tensor cores, with the 67 TFLOP/s CUDA-core bound kept
@@ -55,7 +60,7 @@ comparison is float32 against float32.
      and bf16 inputs; 2e-5 absolute) of the largest |dW|, since each entry
      sums every pixel.  Library calls: torch.nn.grad.conv2d_weight, aten's
      native_batch_norm_backward after the activation's backward, F.conv2d,
-     F.conv_transpose2d, each convolution's also on the bf16 inputs;
+     F.conv_transpose2d, each also on the bf16 inputs;
   7. every autograd Function (Conv3x3, ConvT4s2, Conv4s2, InstanceNormAct)
      at every recorded site, and Conv3x3InAct at the region's 512^2 site,
      so every kernel at every shape the train step gives it: its output
@@ -564,10 +569,9 @@ def run_cases(cases):
         t_k16 = device_ms(lambda: c.kern(*args16))
         t_p = device_ms(lambda: c.plain(*args))
         t_l = device_ms(lambda: c.lib(*args))
-        # the bf16 yardstick of every convolution (cuDNN on the tensor
-        # cores), the same library call on the bf16 inputs
-        t_l16 = (device_ms(lambda: c.lib(*args16))
-                 if c.kernel in CONV_KERNELS else None)
+        # the bf16 yardstick: the same library call on the bf16 inputs
+        # (cuDNN on the tensor cores; aten's instance norm and its backward)
+        t_l16 = device_ms(lambda: c.lib(*args16))
         t_call = call_ms(lambda: c.kern(*args))
         peak = PEAK_TF32X3_FLOPS if c.kernel in CONV_KERNELS \
             else PEAK_F32_FLOPS
@@ -583,10 +587,9 @@ def run_cases(cases):
             bytes=c.nbytes))
         print('  %-17s %-26s x%-3d err f32 %.2e bf16 %.2e | kernel %.4f ms '
               '(bf16 %.4f, eager call %.4f) plain %.4f library %.4f (bf16 '
-              '%s) bound %.4f (%s; bf16 %.4f)' % (
+              '%.4f) bound %.4f (%s; bf16 %.4f)' % (
                   c.kernel, c.label, c.count, e32, e16, t_k, t_k16, t_call,
-                  t_p, t_l, 'n/a' if t_l16 is None else '%.4f' % t_l16,
-                  b_ms, b_by, b16_ms))
+                  t_p, t_l, t_l16, b_ms, b_by, b16_ms))
         a = agg.setdefault(c.kernel, dict(
             max_abs_err=0.0, ms=0.0, ms_bf16=0.0, plain_ms=0.0,
             library_ms=0.0, library_ms_bf16=0.0, bound_ms=0.0,
@@ -594,7 +597,7 @@ def run_cases(cases):
             bytes16=0.0, sites=0, peak_flops=peak))
         a['max_abs_err'] = max(a['max_abs_err'], e32)
         for k, v in (('ms', t_k), ('ms_bf16', t_k16), ('plain_ms', t_p),
-                     ('library_ms', t_l), ('library_ms_bf16', t_l16 or 0.0),
+                     ('library_ms', t_l), ('library_ms_bf16', t_l16),
                      ('bound_ms', b_ms), ('bound_ms_cuda_core', b_cc),
                      ('bound_ms_bf16', b16_ms), ('flops', c.flops),
                      ('bytes', c.nbytes), ('bytes16', c.nbytes16)):
@@ -603,11 +606,10 @@ def run_cases(cases):
     for name, a in agg.items():
         _, a['bound_by'] = bound_ms(a['flops'], a['bytes'], a['peak_flops'])
         print('  %-17s over %d launches: kernel f32 %.4f ms, bf16 %.4f; '
-              'library f32 %.4f%s; bound f32 %.4f (%s), bf16 %.4f; f32 '
-              'CUDA-core bound %.4f' % (
+              'library f32 %.4f, bf16 %.4f; bound f32 %.4f (%s), bf16 %.4f; '
+              'f32 CUDA-core bound %.4f' % (
                   name, a['sites'], a['ms'], a['ms_bf16'], a['library_ms'],
-                  ', bf16 %.4f' % a['library_ms_bf16']
-                  if name in CONV_KERNELS else '',
+                  a['library_ms_bf16'],
                   a['bound_ms'], a['bound_by'], a['bound_ms_bf16'],
                   a['bound_ms_cuda_core']))
     return per_site, agg
@@ -632,8 +634,9 @@ def phase_region():
     gen = torch.Generator(device=DEV).manual_seed(4321)
     per_site = []
     agg = {name: dict(max_abs_err=0.0, ms=0.0, ms_bf16=0.0, plain_ms=0.0,
-                      library_ms=None, bound_ms=0.0, bound_ms_bf16=0.0,
-                      flops=0.0, bytes=0.0, sites=0, peak_flops=peak)
+                      library_ms=None, library_ms_bf16=None, bound_ms=0.0,
+                      bound_ms_bf16=0.0, flops=0.0, bytes=0.0, sites=0,
+                      peak_flops=peak)
            for name, peak in (('conv3x3_in_stats', PEAK_TF32X3_FLOPS),
                               ('instance_norm_apply', PEAK_F32_FLOPS))}
     for side in REGION_SIDES:
@@ -837,6 +840,59 @@ def phase_conv3x3_dw_shapes():
         print('  conv3x3_dw %-24s err %.2e of the largest |dW|, two runs '
               'identical' % ('%d x %d->%d @%dx%d' % (n, ci, co, h, w),
                              site_err))
+    return worst
+
+
+# conv4s2's tensor-core route (row 5): (N, Ci, Co, H, W) with the stems'
+# 1-3 input channels and 17 (off its 8-channel chunk), output channels off
+# its n8 fragments and its 64-channel block, odd sides (value-by-value
+# staging) and N = 2; two runs of one launch must agree bitwise, there and
+# at the widest train site, 128 -> 256 on 128^2
+RAGGED_C4 = [(2, ci, co, h, w) for ci in (1, 2, 3, 17) for co in (5, 70)
+             for h, w in ((7, 13), (9, 5))]
+IDENTITY_C4 = [(1, 128, 256, 128, 128)]
+C4_MODULE = importlib.import_module(
+    'supervised_gan_tpu_torch.ops.kernels.conv4s2')
+
+
+def check_conv4s2_plan(n, ci, co, h, w):
+    """The kernel's split of the input-channel chunks (conv4s2_splits) is
+    the one ops/kernels/conv4s2.py tc_plan describes, which the CPU
+    rehearsal in tests/test_torch_conv4s2_tc.py emulates."""
+    lib = build.load('conv4s2', C4_MODULE._SIGNATURES)
+    ours = lib.conv4s2_splits(n, ci, co, h, w)
+    plan = len(C4_MODULE.tc_plan(n, ci, co, h, w))
+    check(ours == plan, 'conv4s2 %s: the kernel splits the input channels '
+          '%d ways, tc_plan %d' % ((n, ci, co, h, w), ours, plan))
+
+
+def phase_conv4s2_shapes():
+    """conv4s2 at RAGGED_C4 and IDENTITY_C4, f32 (1e-4) and bf16 (2e-2)
+    against conv4s2_plain, each launched twice: the two outputs must be
+    identical.  Returns the worst errors."""
+    gen = torch.Generator(device=DEV).manual_seed(97)
+    worst = {'f32': 0.0, 'bf16': 0.0}
+    for n, ci, co, h, w in RAGGED_C4 + IDENTITY_C4:
+        check_conv4s2_plan(n, ci, co, h, w)
+        x = randn((n, ci, h, w), gen)
+        wt = randn((co, ci, 4, 4), gen, (16 * ci) ** -0.5)
+        b = randn((co,), gen, 0.1)
+        for tag, dt, tol in (('f32', torch.float32, 1e-4),
+                             ('bf16', torch.bfloat16, 2e-2)):
+            args = (x.to(dt), wt.to(dt), b)
+            y, again = K.conv4s2(*args), K.conv4s2(*args)
+            ref = K.conv4s2_plain(*args)
+            torch.cuda.synchronize()
+            site = '%d x %d->%d @%dx%d %s' % (n, ci, co, h, w, tag)
+            check(y.shape == ref.shape and y.dtype == dt
+                  and bool(torch.isfinite(y).all()),
+                  'conv4s2 %s: bad output' % site)
+            check(within(y, ref, tol), 'conv4s2 %s: max abs err %.3g'
+                  % (site, err(y, ref)))
+            check(torch.equal(y, again), 'conv4s2 %s: two runs differ' % site)
+            worst[tag] = max(worst[tag], err(y, ref))
+            print('  conv4s2 %-26s err %.2e, two runs identical'
+                  % (site, err(y, ref)))
     return worst
 
 
@@ -1330,7 +1386,7 @@ KERNEL_SYMBOLS = {
     'instance_norm_act': ('in_stats_kernel', 'in_apply_kernel'),
     'conv3x3_dw': ('dw_tc_kernel', 'dw_reduce_kernel'),
     'instance_norm_bwd': ('in_bwd_stats_kernel', 'in_bwd_apply_kernel'),
-    'conv4s2': ('conv4s2_kernel', 'conv4s2_reduce_kernel'),
+    'conv4s2': ('conv4s2_tc_kernel', 'conv4s2_reduce_kernel'),
     'conv3x3_in_stats': ('conv3x3_in_kernel', 'conv3x3_in_fold_kernel'),
     'instance_norm_apply': ('in_norm_kernel',)}
 
@@ -1739,7 +1795,7 @@ def main():
                 print('  %s: %s' % (name, line.strip()))
 
     hmma = {}
-    for name in ('conv3x3', 'conv3x3_dw'):
+    for name in ('conv3x3', 'conv3x3_dw', 'conv4s2'):
         hmma[name] = sass_hmma(name)
         print('%s SASS: %d HMMA instructions %s; ptxas spills %d bytes'
               % (name, sum(hmma[name].values()), hmma[name],
@@ -1752,6 +1808,8 @@ def main():
     conv3_shapes = phase_conv3x3_shapes()
     print('== conv3x3_dw at ragged shapes, and two runs of one launch')
     dw_shapes = phase_conv3x3_dw_shapes()
+    print('== conv4s2 at ragged shapes, and two runs of one launch')
+    c4_shapes = phase_conv4s2_shapes()
 
     print('== forward kernels vs plain versions at the 512 px sampler sites')
     per_site, agg = run_cases(sampler_cases())
@@ -1777,6 +1835,8 @@ def main():
               '%d a step' % (k, sum(books[k].values()), n))
     for (xs, co) in books['conv3x3_dw']:
         check_dw_plan(xs[0], xs[1], co, xs[2], xs[3])
+    for (xs, ws, _) in books['conv4s2']:
+        check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
 
     print('== kernels A, B, C, and conv3x3 and convt4s2 as dx, vs plain '
           'versions at the train step\'s sites')
@@ -1865,7 +1925,7 @@ def main():
     detail = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
                   sites=per_site, region_sites=per_site_r, kernels=kernels,
                   hmma=hmma, conv3x3_shapes=conv3_shapes,
-                  conv3x3_dw_shapes=dw_shapes,
+                  conv3x3_dw_shapes=dw_shapes, conv4s2_shapes=c4_shapes,
                   kernel_sums=agg, launches_per_step=LAUNCHES_PER_STEP,
                   stage1_launches_per_step=STAGE1_PER_STEP,
                   train_sites={k: {repr(s): c for s, c in v.items()}

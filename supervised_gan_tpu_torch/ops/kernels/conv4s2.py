@@ -5,8 +5,11 @@ Replaces supervised_gan_tpu/ops/pallas/conv4s2.py `_kernel` (:81) through
 `conv4s2_same` (:183).  The Pallas kernel's lane gate (Ci and Co multiples
 of 64) refuses the 1-, 2- and 3-channel stems; this kernel takes every
 shape, so every stride-2 conv of the PatchGAN trunks and the unet down path
-goes through it, and so does the dx of every k4 s2 transposed conv.  Bound
-on the H100: arithmetic at the wide sites (see the source note).
+goes through it, and so does the dx of every k4 s2 transposed conv.  It is
+an implicit GEMM on the tensor cores (bf16 mma.sync; f32 as 3xTF32) whose K
+is the 16 taps of each input channel, split over blocks where the grid is
+small (`tc_plan` says how).  Bound on the H100: arithmetic at the wide
+sites, bytes at the stems (see the source note).
 
 Layout: x (N, Ci, H, W), w (Co, Ci, 4, 4) as torch.nn.Conv2d, b (Co,) or
 None; y (N, Co, (H-2)//2+1, (W-2)//2+1) in x's dtype (float32 or bfloat16,
@@ -24,9 +27,30 @@ from .common import (DTYPE_CODES, bias_arg, check_cuda_inputs, on_cpu,
 
 _SIGNATURES = {
     'conv4s2_workspace': ([ctypes.c_int] * 5, ctypes.c_longlong),
+    'conv4s2_splits': ([ctypes.c_int] * 5, ctypes.c_int),
     'conv4s2_fwd': ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                     + [ctypes.c_void_p], ctypes.c_int),
 }
+
+# csrc/conv4s2.cu's tiling: TILE_ROWS x TILE_COLS output pixels by
+# CO_BLOCK output channels a block, the input channels in chunks of
+# CI_CHUNK, the chunks split over blocks while the grid is below RESIDENT
+# blocks (two on each of the H100's 132 SMs).
+TILE_ROWS, TILE_COLS, CO_BLOCK, CI_CHUNK, RESIDENT = 8, 16, 64, 8, 2 * 132
+
+
+def tc_plan(n, ci, co, h, w):
+    """The kernel's split of the input-channel sum for these shapes (both
+    dtypes): [(first, end) chunk of CI_CHUNK channels of each split].  Each
+    split sums its chunks in order, channel by channel; with one split that
+    sum plus the bias is y, else the splits' sums are added in order
+    s = 0, 1, ... starting from 0, then the bias."""
+    ho, wo = (h - 2) // 2 + 1, (w - 2) // 2 + 1
+    blocks = (-(-ho // TILE_ROWS) * -(-wo // TILE_COLS) * -(-co // CO_BLOCK)
+              * n)
+    chunks = -(-ci // CI_CHUNK)
+    per = -(-chunks // max(1, min(chunks, RESIDENT // blocks)))
+    return [(k, min(chunks, k + per)) for k in range(0, chunks, per)]
 
 
 def conv4s2_plain(x, w, b=None):
