@@ -13,9 +13,9 @@ comparison is float32 against float32.
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every kernel from supervised_gan_tpu_torch/csrc (one nvcc per
      source, in parallel) and print the build time and ptxas report; count
-     the HMMA (tensor-core) instructions in conv3x3's, conv3x3_dw's and
-     conv4s2's SASS (cuobjdump; each needs bf16 and TF32 ones) and their
-     ptxas spills;
+     the HMMA (tensor-core) instructions in conv3x3's, conv3x3_dw's,
+     conv4s2's and convt4s2's SASS (cuobjdump; each needs bf16 and TF32
+     ones) and their ptxas spills;
      conv3x3 at ragged shapes (odd sides, 1x1, channel counts off its
      chunk and tile sizes, N = 2) and at the 512^2 and 8^2 sites, f32 and
      bf16 against its plain version (tolerances as in 3), each launched
@@ -26,7 +26,11 @@ comparison is float32 against float32.
      at ragged shapes (Ci 1, 2, 3, 17 x Co 5, 70, odd sides, N = 2) and at
      128 -> 256 on 128^2, within the tolerances of 3, its split of the
      input channels checked against ops/kernels/conv4s2.py tc_plan there and
-     at every train site;
+     at every train site; convt4s2 likewise at ragged shapes (Ci 1, 2, 3,
+     17 x Co 1, 2, 5, 70, odd sides, N = 2) and at 256 -> 128 on 64^2 and
+     128 -> 64 on 128^2, its split of the input channels checked against
+     ops/kernels/convt4s2.py tc_plan there, at the sampler's sites and at
+     every train site;
   3. the forward kernels (conv3x3, convt4s2, instance_norm_act) at every
      site of the 512 px sampler (README DSGAN widths): kernel vs plain
      version in float32 (tolerance 1e-4 abs + 1e-4 rel: f32 sums in
@@ -85,7 +89,9 @@ comparison is float32 against float32.
      numbered and latest checkpoints and full state written, each kernel's
      launch count = its launches per step (worked out from the networks'
      structure) x steps, median step time; one bf16 step profiled (device
-     time by wrapper and busy share);
+     time by wrapper and busy share; the conv4s2 and convt4s2 device
+     kernels in it: their wrappers' launches plus one reduce for each
+     launch that tc_plan splits);
  10. one full-width f32 step at 512 px, --pool_size 0 --no_dropout2, on
      the card through the kernels and on the CPU through the plain versions
      with the same weights, noise and batch, the CPU's D banks set to the
@@ -896,6 +902,72 @@ def phase_conv4s2_shapes():
     return worst
 
 
+# convt4s2's tensor-core route (row 4): (N, Ci, Co, H, W) with 1-3 and 17
+# input channels (off its 8- and 16-channel chunks; 1-3 output channels are
+# the D stems' dx), output channels off its n8 fragments and its 32-channel
+# block, odd sides (value-by-value staging) and N = 2; two runs of one launch
+# must agree bitwise, there and at the two widest dx sites
+RAGGED_CT = [(2, ci, co, h, w) for ci in (1, 2, 3, 17) for co in (1, 2, 5, 70)
+             for h, w in ((7, 13), (9, 5))]
+IDENTITY_CT = [(1, 256, 128, 64, 64), (1, 128, 64, 128, 128)]
+CT_MODULE = importlib.import_module(
+    'supervised_gan_tpu_torch.ops.kernels.convt4s2')
+
+
+def check_convt4s2_plan(n, ci, co, h, w):
+    """The kernel's split of the input channels (convt4s2_splits) is the one
+    ops/kernels/convt4s2.py tc_plan describes, which the CPU rehearsal in
+    tests/test_torch_convt4s2_tc.py emulates, and its route (tensor cores or
+    its CUDA-core loop) the one tensor_cores describes."""
+    lib = build.load('convt4s2', CT_MODULE._SIGNATURES)
+    ours = lib.convt4s2_splits(n, ci, co, h, w)
+    plan = len(CT_MODULE.tc_plan(n, ci, co, h, w))
+    check(ours == plan, 'convt4s2 %s: the kernel splits the input channels '
+          '%d ways, tc_plan %d' % ((n, ci, co, h, w), ours, plan))
+    tc = bool(lib.convt4s2_tensor_cores(n, ci, co, h, w))
+    check(tc == CT_MODULE.tensor_cores(ci, h, w), 'convt4s2 %s: the kernel '
+          'takes the tensor cores: %s, tensor_cores says %s'
+          % ((n, ci, co, h, w), tc, not tc))
+
+
+def phase_convt4s2_shapes():
+    """convt4s2 at RAGGED_CT and IDENTITY_CT, f32 (1e-4) and bf16 (2e-2)
+    against convt4s2_plain, each launched twice: the two outputs must be
+    identical.  Returns the worst errors."""
+    gen = torch.Generator(device=DEV).manual_seed(98)
+    worst = {'f32': 0.0, 'bf16': 0.0}
+    for n, ci, co, h, w in RAGGED_CT + IDENTITY_CT:
+        check_convt4s2_plan(n, ci, co, h, w)
+        x = randn((n, ci, h, w), gen)
+        wt = randn((ci, co, 4, 4), gen, (4 * ci) ** -0.5)
+        b = randn((co,), gen, 0.1)
+        for tag, dt, tol in (('f32', torch.float32, 1e-4),
+                             ('bf16', torch.bfloat16, 2e-2)):
+            args = (x.to(dt), wt.to(dt), b)
+            y, again = K.convt4s2(*args), K.convt4s2(*args)
+            ref = K.convt4s2_plain(*args)
+            torch.cuda.synchronize()
+            site = '%d x %d->%d @%dx%d %s' % (n, ci, co, h, w, tag)
+            check(y.shape == ref.shape and y.dtype == dt
+                  and bool(torch.isfinite(y).all()),
+                  'convt4s2 %s: bad output' % site)
+            check(within(y, ref, tol), 'convt4s2 %s: max abs err %.3g'
+                  % (site, err(y, ref)))
+            check(torch.equal(y, again), 'convt4s2 %s: two runs differ'
+                  % site)
+            worst[tag] = max(worst[tag], err(y, ref))
+            print('  convt4s2 %-25s err %.2e, two runs identical'
+                  % (site, err(y, ref)))
+    return worst
+
+
+def split_launches(module, sites):
+    """Reduce launches of module's kernel at {(N, Ci, Co, H, W): count}: one
+    for each launch that its tc_plan splits."""
+    return sum(c for (n, ci, co, h, w), c in sites.items()
+               if len(module.tc_plan(n, ci, co, h, w)) > 1)
+
+
 def ptxas_spills(name):
     """Bytes of spill stores and loads ptxas reports for csrc/<name>.cu
     (from the build log kept beside the library)."""
@@ -1382,7 +1454,9 @@ def profile_rows(run, n, trace_name):
 
 # device kernel symbols of each wrapper, as the profiler names them
 KERNEL_SYMBOLS = {
-    'conv3x3': ('conv3x3_tc_kernel',), 'convt4s2': ('convt4s2_kernel',),
+    'conv3x3': ('conv3x3_tc_kernel',),
+    'convt4s2': ('convt4s2_tc_kernel', 'convt4s2_reduce_kernel',
+                 'convt4s2_cc_kernel'),
     'instance_norm_act': ('in_stats_kernel', 'in_apply_kernel'),
     'conv3x3_dw': ('dw_tc_kernel', 'dw_reduce_kernel'),
     'instance_norm_bwd': ('in_bwd_stats_kernel', 'in_bwd_apply_kernel'),
@@ -1598,9 +1672,11 @@ def readme_train(gate, steps):
                          else LAUNCHES_PER_STEP)
 
 
-def phase_profile_step():
+def phase_profile_step(device_kernels):
     """One bf16 step of the bench configuration, timed alone (wall, with a
-    synchronize) and traced: device time per step by kernel, busy share."""
+    synchronize) and traced: device time per step by kernel, busy share.
+    device_kernels: {wrapper: its device kernels a step}, checked against
+    the trace."""
     model = create_model(train_opt(['--compute_dtype', 'bfloat16', '--name',
                                     TRAIN_NAME + '_profile']))
     model.set_input(fixed_batch())
@@ -1633,6 +1709,10 @@ def phase_profile_step():
                           for k, v in out['by_kernel'].items()))
         for key, ms, n in out['top']:
             print('    %8.4f ms  x%5.1f  %s' % (ms, n, key[:90]))
+        for name, want in device_kernels.items():
+            got = out['by_kernel'][name][1]
+            check(got == want, 'profiled step: %s ran %s device kernels, '
+                  'expected %d' % (name, got, want))
     else:
         print('  profiler: no device time recorded; busy share not measured')
     del model
@@ -1795,7 +1875,7 @@ def main():
                 print('  %s: %s' % (name, line.strip()))
 
     hmma = {}
-    for name in ('conv3x3', 'conv3x3_dw', 'conv4s2'):
+    for name in ('conv3x3', 'conv3x3_dw', 'conv4s2', 'convt4s2'):
         hmma[name] = sass_hmma(name)
         print('%s SASS: %d HMMA instructions %s; ptxas spills %d bytes'
               % (name, sum(hmma[name].values()), hmma[name],
@@ -1810,6 +1890,8 @@ def main():
     dw_shapes = phase_conv3x3_dw_shapes()
     print('== conv4s2 at ragged shapes, and two runs of one launch')
     c4_shapes = phase_conv4s2_shapes()
+    print('== convt4s2 at ragged shapes, and two runs of one launch')
+    ct_shapes = phase_convt4s2_shapes()
 
     print('== forward kernels vs plain versions at the 512 px sampler sites')
     per_site, agg = run_cases(sampler_cases())
@@ -1837,6 +1919,29 @@ def main():
         check_dw_plan(xs[0], xs[1], co, xs[2], xs[3])
     for (xs, ws, _) in books['conv4s2']:
         check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
+    # convt4s2's sites, (N, Ci, Co, H, W): the sampler's, G1's and F2's
+    # forwards in the step (ConvT4s2) and its dx launches
+    ct_sites = collections.Counter()
+    for (xs, ws, _), c in books['ConvT4s2'].items():
+        ct_sites[(xs[0], xs[1], ws[1], xs[2], xs[3])] += c
+    for (gs, ws), c in books['conv4s2_dx'].items():
+        ct_sites[(gs[0], gs[1], ws[1], gs[2], gs[3])] += c
+    check(sum(ct_sites.values()) == LAUNCHES_PER_STEP['convt4s2'],
+          'recorded convt4s2 calls %d, expected %d a step'
+          % (sum(ct_sites.values()), LAUNCHES_PER_STEP['convt4s2']))
+    for site in list(ct_sites) + [(1, ci, co, s, s)
+                                  for ci, co, s, _ in CONVT_SITES]:
+        check_convt4s2_plan(*site)
+    c4_sites = collections.Counter()
+    for (xs, ws, _), c in books['conv4s2'].items():
+        c4_sites[(xs[0], xs[1], ws[0], xs[2], xs[3])] += c
+    device_kernels = {
+        'convt4s2': (LAUNCHES_PER_STEP['convt4s2']
+                     + split_launches(CT_MODULE, ct_sites)),
+        'conv4s2': (LAUNCHES_PER_STEP['conv4s2']
+                    + split_launches(C4_MODULE, c4_sites))}
+    print('  device kernels a step (wrapper launches + reduces): %s'
+          % device_kernels)
 
     print('== kernels A, B, C, and conv3x3 and convt4s2 as dx, vs plain '
           'versions at the train step\'s sites')
@@ -1883,7 +1988,7 @@ def main():
     train16 = bench_train('bfloat16', TRAIN_IMAGES)
     train32 = bench_train('float32', F32_STEPS)
     print('== one bf16 train step profiled')
-    prof = phase_profile_step()
+    prof = phase_profile_step(device_kernels)
     print('== reference: one f32 train step at 512 px, card vs CPU plain')
     ref_step = phase_reference_step()
 
@@ -1926,6 +2031,7 @@ def main():
                   sites=per_site, region_sites=per_site_r, kernels=kernels,
                   hmma=hmma, conv3x3_shapes=conv3_shapes,
                   conv3x3_dw_shapes=dw_shapes, conv4s2_shapes=c4_shapes,
+                  convt4s2_shapes=ct_shapes, device_kernels=device_kernels,
                   kernel_sums=agg, launches_per_step=LAUNCHES_PER_STEP,
                   stage1_launches_per_step=STAGE1_PER_STEP,
                   train_sites={k: {repr(s): c for s, c in v.items()}

@@ -124,33 +124,53 @@ __device__ __forceinline__ void split_tf32(uint32_t v, uint32_t& hi,
   lo = rna_tf32(f - __uint_as_float(hi));
 }
 
-// A and B fragments of one warp for one tap from an MMA layout.
-__device__ __forceinline__ void fragments(const char* xs, const char* ws,
-                                          int tap, int warp_m, int warp_n,
-                                          uint32_t (&a)[2][4],
-                                          uint32_t (&b)[4][2]) {
+// A fragments of one warp at halo shift (ky, kx) from a channels-last halo
+// tile: its two m16 fragments, output rows warp_m * 2 + mt.
+__device__ __forceinline__ void a_fragments(const char* xs, int ky, int kx,
+                                            int warp_m, uint32_t (&a)[2][4]) {
   const int lane = threadIdx.x & 31;
-  const int ky = tap / 3, kx = tap % 3;
-  // A: matrices (pixels 0-7 | 8-15) x (chunk half 0 | 1), one lane a row
+  // matrices (pixels 0-7 | 8-15) x (chunk half 0 | 1), one lane a row
   const int a_px = (lane & 7) + ((lane >> 3) & 1) * 8;
   const int a_half = lane >> 4;
-  // B: matrices (channel half 0 | 1) x (output channels 0-7 | 8-15)
-  const int b_co = (lane & 7) + (lane >> 4) * 8;
-  const int b_half = (lane >> 3) & 1;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     const int r = warp_m * 2 + mt + ky;
     ldmatrix_x4(a[mt], xs + (r * HALO_W + a_px + kx) * XS_PITCH + a_half * 16);
   }
+}
+
+// B fragments of 16 output channels (two n8 fragments, b[0] for channels
+// 0-7) from weights laid out [co][..][channel]: ws points at output
+// channel 0's 32-byte chunk row, output channels `pitch` bytes apart.
+__device__ __forceinline__ void b_fragments(const char* ws, int pitch,
+                                            uint32_t (&b)[2][2]) {
+  const int lane = threadIdx.x & 31;
+  // matrices (channel half 0 | 1) x (output channels 0-7 | 8-15)
+  const int b_co = (lane & 7) + (lane >> 4) * 8;
+  const int b_half = (lane >> 3) & 1;
+  uint32_t q[4];
+  ldmatrix_x4(q, ws + b_co * pitch + b_half * 16);
+  b[0][0] = q[0];
+  b[0][1] = q[1];
+  b[1][0] = q[2];
+  b[1][1] = q[3];
+}
+
+// A and B fragments of one warp for one tap from an MMA layout.
+__device__ __forceinline__ void fragments(const char* xs, const char* ws,
+                                          int tap, int warp_m, int warp_n,
+                                          uint32_t (&a)[2][4],
+                                          uint32_t (&b)[4][2]) {
+  a_fragments(xs, tap / 3, tap % 3, warp_m, a);
 #pragma unroll
   for (int np = 0; np < 2; ++np) {
-    uint32_t q[4];
-    ldmatrix_x4(q, ws + (warp_n * 32 + np * 16 + b_co) * WS_PITCH + tap * ROW
-                       + b_half * 16);
-    b[2 * np][0] = q[0];
-    b[2 * np][1] = q[1];
-    b[2 * np + 1][0] = q[2];
-    b[2 * np + 1][1] = q[3];
+    uint32_t q[2][2];
+    b_fragments(ws + (warp_n * 32 + np * 16) * WS_PITCH + tap * ROW,
+                WS_PITCH, q);
+    b[2 * np][0] = q[0][0];
+    b[2 * np][1] = q[0][1];
+    b[2 * np + 1][0] = q[1][0];
+    b[2 * np + 1][1] = q[1][1];
   }
 }
 
@@ -217,19 +237,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// Copy one chunk (input channels c0 .. c0+KC-1) as it lies in device memory
-// into a raw stage: the halo rows [c][hy][RAW_W] from x = ox0 - XV (zero
-// outside the image and past Ci), and the weights [co][KC * 9] as OIHW
-// holds them (only co < Co, ci < Ci; the transpose masks the rest).
-// xvec: rows are whole 16-byte vectors (W a multiple of XV), so the halo
-// goes in vectors; wvec: so does every output channel's run of weights.
-// Otherwise single values: cp.async for f32, plain loads for bf16.
-template <typename T>
-__device__ __forceinline__ void copy_chunk(const T* __restrict__ xn,
-                                           const T* __restrict__ w, int c0,
-                                           int Ci, int Co, int H, int W,
-                                           int oy0, int ox0, int co0,
-                                           char* raw, bool wvec, bool xvec) {
+// Copy the halo of one chunk (input channels c0 .. c0+KC-1) as it lies in
+// device memory into a raw stage: rows [c][hy][RAW_W] from x = ox0 - XV
+// (zero outside the image and past Ci).  xvec: rows are whole 16-byte
+// vectors (W a multiple of XV), so the halo goes in vectors; otherwise
+// single values: cp.async for f32, plain loads for bf16.  tid: this
+// thread's index among the block's NT threads.
+template <typename T, int NT = THREADS>
+__device__ __forceinline__ void copy_halo(const T* __restrict__ xn, int c0,
+                                          int Ci, int H, int W, int oy0,
+                                          int ox0, char* raw, bool xvec,
+                                          int tid) {
   constexpr int KC = Elem<T>::KC, ES = sizeof(T);
   constexpr int XV = Elem<T>::XV, RAW_W = Elem<T>::RAW_W;
   const int kc = min(KC, Ci - c0);
@@ -237,7 +255,7 @@ __device__ __forceinline__ void copy_chunk(const T* __restrict__ xn,
   const T* xc = xn + (size_t)c0 * plane;
   if (xvec) {
     constexpr int NV = RAW_W / XV;  // vectors a row
-    for (int i = threadIdx.x; i < KC * HALO_H * NV; i += THREADS) {
+    for (int i = tid; i < KC * HALO_H * NV; i += NT) {
       const int v = i % NV, r = i / NV, hy = r % HALO_H, c = r / HALO_H;
       const int gy = oy0 + hy - 1, gx = ox0 - XV + v * XV;
       const bool ok = c < kc && gy >= 0 && gy < H && gx >= 0 && gx < W;
@@ -245,7 +263,7 @@ __device__ __forceinline__ void copy_chunk(const T* __restrict__ xn,
                  ok ? xc + c * plane + (size_t)gy * W + gx : xn, ok);
     }
   } else {
-    for (int i = threadIdx.x; i < KC * HALO; i += THREADS) {
+    for (int i = tid; i < KC * HALO; i += NT) {
       const int r = i % HALO, c = i / HALO;
       const int hy = r / HALO_W, hx = r % HALO_W;
       const int gy = oy0 + hy - 1, gx = ox0 + hx - 1;
@@ -260,6 +278,21 @@ __device__ __forceinline__ void copy_chunk(const T* __restrict__ xn,
       }
     }
   }
+}
+
+// Copy one chunk (input channels c0 .. c0+KC-1) as it lies in device memory
+// into a raw stage: the halo (copy_halo), then the weights [co][KC * 9] as
+// OIHW holds them (only co < Co, ci < Ci; the transpose masks the rest).
+// wvec: every output channel's run of weights goes in 16-byte vectors.
+template <typename T>
+__device__ __forceinline__ void copy_chunk(const T* __restrict__ xn,
+                                           const T* __restrict__ w, int c0,
+                                           int Ci, int Co, int H, int W,
+                                           int oy0, int ox0, int co0,
+                                           char* raw, bool wvec, bool xvec) {
+  constexpr int KC = Elem<T>::KC, ES = sizeof(T);
+  const int kc = min(KC, Ci - c0);
+  copy_halo<T>(xn, c0, Ci, H, W, oy0, ox0, raw, xvec, threadIdx.x);
   char* rw = raw + raw_x_bytes<T>();
   const int ncol = min(BN, Co - co0);
   const T* wc = w + ((size_t)co0 * Ci + c0) * 9;
@@ -286,17 +319,12 @@ __device__ __forceinline__ void copy_chunk(const T* __restrict__ xn,
   }
 }
 
-// Raw stage -> the MMA layout: each halo pixel's KC channels as one 32-byte
-// row (thread t < HALO takes pixel t), and the weights of each of the
-// block's ncol output channels below Co as [tap][channel] (a thread takes
-// one channel pair of one output channel over the 9 taps), zero past Ci
-// (kc channels here).  Rows past Co are left as they are: they only reach
-// accumulator columns that are never stored.  f32 values are split here,
-// once: hi to mma, lo to mma + MMA_BYTES.
+// The halo of a raw stage -> [halo pixel][channel] at mma (thread t < HALO
+// takes pixel t); f32 values are split, hi to mma, lo to mma + lo.
 template <typename T>
-__device__ __forceinline__ void transpose_chunk(const char* raw, char* mma,
-                                                int kc, int ncol) {
-  constexpr int KC = Elem<T>::KC, ES = sizeof(T), PAIRS = KC / 2;
+__device__ __forceinline__ void transpose_halo(const char* raw, char* mma,
+                                               int lo) {
+  constexpr int ES = sizeof(T);
   constexpr int RAW_W = Elem<T>::RAW_W, XV = Elem<T>::XV;
   constexpr int CH = HALO_H * RAW_W;  // elements between raw halo channels
   if (threadIdx.x < HALO) {
@@ -315,18 +343,31 @@ __device__ __forceinline__ void transpose_chunk(const char* raw, char* mma,
     } else {
       const uint32_t* s =
           reinterpret_cast<const uint32_t*>(raw) + hy * RAW_W + hx - 1 + XV;
-      uint4* dl = reinterpret_cast<uint4*>(mma + MMA_BYTES +
-                                           threadIdx.x * XS_PITCH);
+      uint4* dl = reinterpret_cast<uint4*>(mma + lo + threadIdx.x * XS_PITCH);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // four channels at a time
-        uint32_t hi[4], lo[4];
+        uint32_t hv[4], lv[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) split_tf32(s[(4 * h + c) * CH], hi[c], lo[c]);
-        d[h] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        dl[h] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        for (int c = 0; c < 4; ++c) split_tf32(s[(4 * h + c) * CH], hv[c], lv[c]);
+        d[h] = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+        dl[h] = make_uint4(lv[0], lv[1], lv[2], lv[3]);
       }
     }
   }
+}
+
+// Raw stage -> the MMA layout: each halo pixel's KC channels as one 32-byte
+// row (thread t < HALO takes pixel t), and the weights of each of the
+// block's ncol output channels below Co as [tap][channel] (a thread takes
+// one channel pair of one output channel over the 9 taps), zero past Ci
+// (kc channels here).  Rows past Co are left as they are: they only reach
+// accumulator columns that are never stored.  f32 values are split here,
+// once: hi to mma, lo to mma + MMA_BYTES.
+template <typename T>
+__device__ __forceinline__ void transpose_chunk(const char* raw, char* mma,
+                                                int kc, int ncol) {
+  constexpr int KC = Elem<T>::KC, ES = sizeof(T), PAIRS = KC / 2;
+  transpose_halo<T>(raw, mma, MMA_BYTES);
   for (int i = threadIdx.x; i < ncol * PAIRS; i += THREADS) {
     const int co = i / PAIRS, p = i % PAIRS;
     const bool ok0 = 2 * p < kc, ok1 = 2 * p + 1 < kc;
