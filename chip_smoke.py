@@ -30,7 +30,16 @@ comparison is float32 against float32.
      17 x Co 1, 2, 5, 70, odd sides, N = 2) and at 256 -> 128 on 64^2 and
      128 -> 64 on 128^2, its split of the input channels checked against
      ops/kernels/convt4s2.py tc_plan there, at the sampler's sites and at
-     every train site;
+     every train site; instance_norm_act and instance_norm_bwd at ragged
+     shapes (1x1 and odd planes, N = 2, C = 1), at the planes just under
+     and just over each route's size threshold, at a 1024^2 plane (the
+     two-pass route) and at the 512^2 site, f32 and bf16, slopes None,
+     0.0 and 0.2, within the tolerances of 3 (mean and rstd within 1e-4 of
+     their largest entry), two runs bitwise identical, the library's plan
+     (instance_norm_plan) checked against ops/kernels/instance_norm.py
+     in_plan there, at the sampler's sites and at every train site, with
+     the clusters the card holds at once; the IN kernels' registers and
+     spills;
   3. the forward kernels (conv3x3, convt4s2, instance_norm_act) at every
      site of the 512 px sampler (README DSGAN widths): kernel vs plain
      version in float32 (tolerance 1e-4 abs + 1e-4 rel: f32 sums in
@@ -59,8 +68,9 @@ comparison is float32 against float32.
      k4 s2 conv's dx) and convt4s2's calls in F2's forward, by shape, with
      its count per step;
   6. kernels A (conv3x3_dw), B (instance_norm_bwd) and C (conv4s2) at every
-     recorded site, conv3x3 and convt4s2 at their dx sites and convt4s2 at
-     F2's 21 forward sites, as in 3; conv3x3_dw's tolerance is 1e-4 (f32
+     recorded site, conv3x3 and convt4s2 at their dx sites, convt4s2 at
+     F2's 21 forward sites and instance_norm_act at the step's 137
+     forward sites (the backward's), as in 3; conv3x3_dw's tolerance is 1e-4 (f32
      and bf16 inputs; 2e-5 absolute) of the largest |dW|, since each entry
      sums every pixel.  Library calls: torch.nn.grad.conv2d_weight, aten's
      native_batch_norm_backward after the activation's backward, F.conv2d,
@@ -91,7 +101,8 @@ comparison is float32 against float32.
      structure) x steps, median step time; one bf16 step profiled (device
      time by wrapper and busy share; the conv4s2 and convt4s2 device
      kernels in it: their wrappers' launches plus one reduce for each
-     launch that tc_plan splits);
+     launch that tc_plan splits; the IN kernels' one a launch, two on the
+     two-pass route);
  10. one full-width f32 step at 512 px, --pool_size 0 --no_dropout2, on
      the card through the kernels and on the CPU through the plain versions
      with the same weights, noise and batch, the CPU's D banks set to the
@@ -122,6 +133,7 @@ results/chip_smoke.
 
 import collections
 import contextlib
+import ctypes
 import importlib
 import json
 import re
@@ -532,12 +544,6 @@ def sampler_cases():
     for c, s, slope in IN_SITES:
         def mk(gen, c=c, s=s):
             return (randn((1, c, s, s), gen, 2.0) + 0.5,)
-
-        def lib(x, slope=slope):
-            y = F.instance_norm(x, eps=1e-5)
-            if slope is None:
-                return y
-            return F.relu(y) if slope == 0.0 else F.leaky_relu(y, slope)
         n = c * s * s
         cases.append(Case('instance_norm_act',
                           '%d @%d^2 slope %s' % (c, s, slope), 1,
@@ -545,8 +551,20 @@ def sampler_cases():
                               x, 1e-5, slope),
                           lambda x, slope=slope: K.instance_norm_act_plain(
                               x, 1e-5, slope),
-                          lib, 6.0 * n, 8.0 * n, 4.0 * n, mk, within))
+                          _in_library(slope), 6.0 * n, 8.0 * n, 4.0 * n, mk,
+                          within))
     return cases
+
+
+def _in_library(slope):
+    """F.instance_norm, then the activation: the library yardstick of
+    instance_norm_act."""
+    def lib(x):
+        y = F.instance_norm(x, eps=1e-5)
+        if slope is None:
+            return y
+        return F.relu(y) if slope == 0.0 else F.leaky_relu(y, slope)
+    return lib
 
 
 def run_cases(cases):
@@ -961,6 +979,165 @@ def phase_convt4s2_shapes():
     return worst
 
 
+# the IN kernels' routes (rows 7 and 10), (N, C, H, W): 1x1 and odd planes
+# (with H*W odd, plane p starts off a 16-byte boundary), N = 2 and C = 1;
+# the planes just under and just over each route's threshold
+# (in_thresholds); a 1024^2 plane (the two-pass route in f32); two runs of
+# one launch must agree bitwise, there and at the two 512^2 sites
+RAGGED_IN = [(2, 1, 1, 1), (2, 3, 1, 1), (2, 1, 3, 5), (2, 3, 15, 15),
+             (2, 5, 31, 31), (2, 3, 63, 63), (2, 1, 255, 255),
+             (1, 64, 15, 15)]
+LARGE_IN = [(1, 2, 1024, 1024)]
+IDENTITY_IN = [(1, 64, 512, 512)]
+IN_MODULE = importlib.import_module(
+    'supervised_gan_tpu_torch.ops.kernels.instance_norm')
+IN_DIRECTIONS = ('forward', 'backward')
+
+
+def in_thresholds(nc=6):
+    """(1, nc, 1, HW) planes just under and just over the size at which
+    in_plan moves from one block to a cluster and from a cluster to the
+    two-pass kernels, for each dtype and direction."""
+    shapes = set()
+    for dt in common.DTYPE_CODES:
+        for d in IN_DIRECTIONS:
+            def route(hw, dt=dt, d=d):
+                return IN_MODULE.ROUTES.index(
+                    IN_MODULE.in_plan(1, nc, 1, hw, dt, d).route)
+            for target in (1, 2):
+                lo, hi = 1, 1 << 26
+                while lo < hi:
+                    mid = (lo + hi) // 2
+                    if route(mid) >= target:
+                        hi = mid
+                    else:
+                        lo = mid + 1
+                shapes |= {(1, nc, 1, lo - 1), (1, nc, 1, lo)}
+    return sorted(shapes, key=lambda t: t[3])
+
+
+def check_in_plan(n, c, h, w):
+    """The library's plan (instance_norm_plan) for N*C planes of H*W is the
+    one ops/kernels/instance_norm.py in_plan describes, which the CPU
+    rehearsal in tests/test_torch_instance_norm_cluster.py follows, in both
+    dtypes and directions; a plan's cluster fits on the card
+    (instance_norm_max_active_clusters > 0).  Returns {(dtype, direction):
+    (plan, clusters the card holds at once)}."""
+    lib = build.load('instance_norm', IN_MODULE._SIGNATURES)
+    plans = {}
+    for dt, code in common.DTYPE_CODES.items():
+        for d in IN_DIRECTIONS:
+            out = (ctypes.c_int * 5)()
+            lib.instance_norm_plan(n * c, h * w, code, int(d == 'backward'),
+                                   out)
+            plan = IN_MODULE.in_plan(n, c, h, w, dt, d)
+            want = (IN_MODULE.ROUTES.index(plan.route),) + tuple(plan[1:])
+            check(tuple(out) == want, 'instance_norm %s %s %s: the library '
+                  'plans %s, in_plan %s' % ((n, c, h, w), dt, d, tuple(out),
+                                            tuple(plan)))
+            active = lib.instance_norm_max_active_clusters(
+                n * c, h * w, code, int(d == 'backward'))
+            check(active > 0 or plan.route == 'two_pass',
+                  'instance_norm %s %s %s: %s plan %s fits %d at once'
+                  % ((n, c, h, w), dt, d, plan.route, tuple(plan), active))
+            plans[(dt, d)] = (plan, active)
+    return plans
+
+
+def _plan_text(plans):
+    return ', '.join(
+        '%s %s %s x%d %dB %dt' % (
+            'f32' if dt == torch.float32 else 'bf16', d[:3], p.route,
+            p.cluster, p.smem, p.threads)
+        for (dt, d), (p, _) in plans.items())
+
+
+def phase_instance_norm_shapes():
+    """instance_norm_act and instance_norm_bwd at RAGGED_IN, in_thresholds(),
+    LARGE_IN and IDENTITY_IN, f32 (1e-4) and bf16 (2e-2) inputs, slopes None,
+    0.0 and 0.2, against their plain versions (the backward at the plain
+    forward's statistics); the forward's mean and rstd within 1e-4 of their
+    largest entry; each launched twice: the two outputs identical.  Returns
+    the worst errors and the plans."""
+    gen = torch.Generator(device=DEV).manual_seed(96)
+    worst = {'f32': 0.0, 'bf16': 0.0}
+    plans = {}
+    for n, c, h, w in RAGGED_IN + in_thresholds() + LARGE_IN + IDENTITY_IN:
+        shape = (n, c, h, w)
+        plans[shape] = check_in_plan(n, c, h, w)
+        x32 = randn(shape, gen, 2.0) + 0.5
+        g32 = randn(shape, gen)
+        errs = {}
+        for tag, dt, tol in (('f32', torch.float32, 1e-4),
+                             ('bf16', torch.bfloat16, 2e-2)):
+            x, g = x32.to(dt), g32.to(dt)
+            for slope in (None, 0.0, 0.2):
+                site = '%s %s slope %s' % (shape, tag, slope)
+                y, m, r = K.instance_norm_act(x, 1e-5, slope,
+                                              return_stats=True)
+                again = K.instance_norm_act(x, 1e-5, slope,
+                                            return_stats=True)
+                yp, mp, rp = K.instance_norm_act_plain(x, 1e-5, slope,
+                                                       return_stats=True)
+                mp, rp = mp.contiguous(), rp.contiguous()
+                dx = K.instance_norm_bwd(x, g, mp, rp, slope)
+                dx2 = K.instance_norm_bwd(x, g, mp, rp, slope)
+                dxp = K.instance_norm_bwd_plain(x, g, mp, rp, slope)
+                torch.cuda.synchronize()
+                for name, a, b in (('y', y, yp), ('dx', dx, dxp)):
+                    check(a.shape == b.shape and a.dtype == dt
+                          and bool(torch.isfinite(a).all()),
+                          'instance_norm %s: bad %s' % (site, name))
+                    check(within(a, b, tol), 'instance_norm %s: %s max abs '
+                          'err %.3g' % (site, name, err(a, b)))
+                for name, a, b in (('mean', m, mp), ('rstd', r, rp)):
+                    check(err(a, b) <= 1e-4 * float(b.abs().max()),
+                          'instance_norm %s: %s off by %.3g of its largest '
+                          'entry' % (site, name,
+                                     err(a, b) / float(b.abs().max())))
+                check(all(torch.equal(a, b) for a, b in zip((y, m, r),
+                                                            again)),
+                      'instance_norm_act %s: two runs differ' % site)
+                check(torch.equal(dx, dx2),
+                      'instance_norm_bwd %s: two runs differ' % site)
+                errs[tag] = max(errs.get(tag, 0.0), err(y, yp), err(dx, dxp))
+            worst[tag] = max(worst[tag], errs[tag])
+        print('  IN %-22s err f32 %.2e bf16 %.2e, two runs identical; %s'
+              % (shape, errs['f32'], errs['bf16'], _plan_text(plans[shape])))
+    return worst, {repr(k): {'%s %s' % (dt, d): dict(plan._asdict(),
+                                                    active=a)
+                             for (dt, d), (plan, a) in v.items()}
+                   for k, v in plans.items()}
+
+
+def ptxas_in_kernels():
+    """{'in_fwd_plane_kernel<float, 512>': [registers, spill bytes], ...}
+    for the IN library's one-launch kernels, from its ptxas report."""
+    log = build.library_path('instance_norm').with_suffix('.log').read_text()
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            t = re.search(r'(in_(?:fwd|bwd)_plane_kernel)I(f|13__nv_bfloat16)'
+                          r'Li(\d+)E', m.group(1))
+            cur = None if t is None else '%s<%s, %s>' % (
+                t.group(1), 'float' if t.group(2) == 'f' else 'bf16',
+                t.group(3))
+            if cur is not None:
+                out[cur] = [0, 0]
+            continue
+        if cur is None:
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            out[cur][1] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r'Used (\d+) registers', line)
+        if m:
+            out[cur][0] = int(m.group(1))
+    return out
+
+
 def split_launches(module, sites):
     """Reduce launches of module's kernel at {(N, Ci, Co, H, W): count}: one
     for each launch that its tc_plan splits."""
@@ -1172,6 +1349,24 @@ def train_cases(books):
                 x, g, m, r, slope),
             lib, 10.0 * elems, 12.0 * elems + 8.0 * n * c,
             6.0 * elems + 8.0 * n * c, mk, within, to16))
+    # row 7 at the train step's forward sites (the backward's sites), as
+    # InstanceNormAct calls it (with the statistics)
+    for (xs, slope), count in sorted(books['InstanceNormAct'].items(),
+                                     key=lambda kv: (kv[0][0],
+                                                     str(kv[0][1]))):
+        n, c, h, w = xs
+
+        def mk(gen, xs=xs):
+            return (randn(xs, gen, 2.0) + 0.5,)
+        elems = n * c * h * w
+        cases.append(Case(
+            'instance_norm_act_train', '%d @%dx%d slope %s' % (c, h, w, slope),
+            count,
+            lambda x, slope=slope: K.instance_norm_act(
+                x, 1e-5, slope, return_stats=True)[0],
+            lambda x, slope=slope: K.instance_norm_act_plain(x, 1e-5, slope),
+            _in_library(slope), 6.0 * elems, 8.0 * elems + 8.0 * n * c,
+            4.0 * elems + 8.0 * n * c, mk, within))
     for (xs, ws, has_b), count in sorted(books['conv4s2'].items()):
         n, ci, h, w = xs
         co = ws[0]
@@ -1457,9 +1652,11 @@ KERNEL_SYMBOLS = {
     'conv3x3': ('conv3x3_tc_kernel',),
     'convt4s2': ('convt4s2_tc_kernel', 'convt4s2_reduce_kernel',
                  'convt4s2_cc_kernel'),
-    'instance_norm_act': ('in_stats_kernel', 'in_apply_kernel'),
+    'instance_norm_act': ('in_fwd_plane_kernel', 'in_stats_kernel',
+                          'in_apply_kernel'),
     'conv3x3_dw': ('dw_tc_kernel', 'dw_reduce_kernel'),
-    'instance_norm_bwd': ('in_bwd_stats_kernel', 'in_bwd_apply_kernel'),
+    'instance_norm_bwd': ('in_bwd_plane_kernel', 'in_bwd_stats_kernel',
+                          'in_bwd_apply_kernel'),
     'conv4s2': ('conv4s2_tc_kernel', 'conv4s2_reduce_kernel'),
     'conv3x3_in_stats': ('conv3x3_in_kernel', 'conv3x3_in_fold_kernel'),
     'instance_norm_apply': ('in_norm_kernel',)}
@@ -1484,7 +1681,9 @@ def by_kernel(rows):
         (name, [0.0, 0.0]) for name in list(KERNEL_SYMBOLS)
         + [g for g, _ in TORCH_GROUPS] + ['torch elementwise/reduce'])
     for key, ms, count in rows:
-        sym = key.split('(anonymous namespace)::')[-1].split('<')[0]
+        # the kernel's name follows the first namespace; later ones are in
+        # its template and parameter types
+        sym = key.split('(anonymous namespace)::', 1)[-1].split('<')[0]
         name = owner.get(sym.split('(')[0])
         if name is None:
             name = next((g for g, subs in TORCH_GROUPS
@@ -1892,6 +2091,13 @@ def main():
     c4_shapes = phase_conv4s2_shapes()
     print('== convt4s2 at ragged shapes, and two runs of one launch')
     ct_shapes = phase_convt4s2_shapes()
+    print('== instance_norm_act and instance_norm_bwd at ragged shapes, at '
+          'their routes\' thresholds, and two runs of one launch')
+    in_shapes, in_shape_plans = phase_instance_norm_shapes()
+    in_ptxas = ptxas_in_kernels()
+    print('  one-launch kernels, [registers, spill bytes]: %s' % in_ptxas)
+    check(in_ptxas and all(v[1] == 0 for v in in_ptxas.values()),
+          'IN one-launch kernels spill or are missing: %s' % in_ptxas)
 
     print('== forward kernels vs plain versions at the 512 px sampler sites')
     per_site, agg = run_cases(sampler_cases())
@@ -1935,12 +2141,41 @@ def main():
     c4_sites = collections.Counter()
     for (xs, ws, _), c in books['conv4s2'].items():
         c4_sites[(xs[0], xs[1], ws[0], xs[2], xs[3])] += c
+    # the IN kernels' plans at the sampler's and the train step's sites;
+    # one device kernel a launch, two on the two-pass route (the profiled
+    # step is bf16)
+    check(sum(books['InstanceNormAct'].values())
+          == LAUNCHES_PER_STEP['instance_norm_act'],
+          'recorded InstanceNormAct calls %d, expected %d a step'
+          % (sum(books['InstanceNormAct'].values()),
+             LAUNCHES_PER_STEP['instance_norm_act']))
+    in_site_plans = {}
+    for shape in sorted({(1, c, s_, s_) for c, s_, _ in IN_SITES}
+                        | {xs for xs, _ in books['instance_norm_bwd']}
+                        | {xs for xs, _ in books['InstanceNormAct']}):
+        plans = check_in_plan(*shape)
+        in_site_plans[repr(shape)] = {
+            '%s %s' % (dt, d): dict(plan._asdict(), active=a)
+            for (dt, d), (plan, a) in plans.items()}
+        print('  IN plan %-20s %s' % (shape, _plan_text(plans)))
+
+    def two_pass(book, direction):
+        return sum(c for (xs, _), c in book.items()
+                   if IN_MODULE.in_plan(*xs, torch.bfloat16,
+                                        direction).route == 'two_pass')
     device_kernels = {
         'convt4s2': (LAUNCHES_PER_STEP['convt4s2']
                      + split_launches(CT_MODULE, ct_sites)),
         'conv4s2': (LAUNCHES_PER_STEP['conv4s2']
-                    + split_launches(C4_MODULE, c4_sites))}
-    print('  device kernels a step (wrapper launches + reduces): %s'
+                    + split_launches(C4_MODULE, c4_sites)),
+        'instance_norm_act': (LAUNCHES_PER_STEP['instance_norm_act']
+                              + two_pass(books['InstanceNormAct'],
+                                         'forward')),
+        'instance_norm_bwd': (LAUNCHES_PER_STEP['instance_norm_bwd']
+                              + two_pass(books['instance_norm_bwd'],
+                                         'backward'))}
+    print('  device kernels a step (wrapper launches + reduces or second '
+          'passes): %s'
           % device_kernels)
 
     print('== kernels A, B, C, and conv3x3 and convt4s2 as dx, vs plain '
@@ -2032,6 +2267,10 @@ def main():
                   hmma=hmma, conv3x3_shapes=conv3_shapes,
                   conv3x3_dw_shapes=dw_shapes, conv4s2_shapes=c4_shapes,
                   convt4s2_shapes=ct_shapes, device_kernels=device_kernels,
+                  instance_norm_shapes=in_shapes,
+                  instance_norm_shape_plans=in_shape_plans,
+                  instance_norm_site_plans=in_site_plans,
+                  instance_norm_ptxas=in_ptxas,
                   kernel_sums=agg, launches_per_step=LAUNCHES_PER_STEP,
                   stage1_launches_per_step=STAGE1_PER_STEP,
                   train_sites={k: {repr(s): c for s, c in v.items()}

@@ -1,6 +1,7 @@
 """InstanceNorm(affine=False) + activation and its backward: the
-hand-written CUDA kernels (csrc/instance_norm.cu, a statistics pass and an
-apply pass each way) and their plain PyTorch versions.
+hand-written CUDA kernels (csrc/instance_norm.cu: one launch each way, each
+plane held in the shared memory of one block or of a thread-block cluster;
+two passes for planes too large for that) and their plain PyTorch versions.
 
 `instance_norm_act` replaces the forward of supervised_gan_tpu/ops/pallas/
 instance_norm.py `fused_instance_norm_act` (:148): the whole-plane `_kernel`
@@ -19,7 +20,9 @@ x's dtype.  ``slope`` None is identity, 0.0 is ReLU, anything else
 LeakyReLU(slope).
 """
 
+import collections
 import ctypes
+import functools
 
 import torch
 
@@ -28,22 +31,38 @@ from .common import (DTYPE_CODES, check_cuda_inputs, on_cpu, raise_on_error,
                      stream_arg)
 
 _SIGNATURES = {
+    'instance_norm_plan': ([ctypes.c_int] * 4 + [ctypes.c_void_p],
+                           ctypes.c_int),
+    'instance_norm_max_active_clusters': ([ctypes.c_int] * 4, ctypes.c_int),
     'instance_norm_act_fwd': (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 2
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p], ctypes.c_int),
     'instance_norm_apply': (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     'instance_norm_act_bwd': (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
 }
 
-# elements of a plane per block: 512^2 planes split 32 ways, so the 64-plane
-# sites launch 2048 blocks per pass
+# csrc/instance_norm.cu's plan: a block holds about TARGET_BYTES of its plane
+# in shared memory; planes of MIN_BYTES or more are cut further until the
+# grid has FILL_BLOCKS blocks (two on each of the H100's 132 SMs); a plane
+# takes a cluster of up to MAX_CLUSTER blocks (a power of two); a chunk that
+# would need more than MAX_SMEM bytes at MAX_CLUSTER blocks takes the
+# two-pass kernels, which split a plane into chunks of _CHUNK elements.
+TARGET_BYTES, MIN_BYTES, FILL_BLOCKS = 64 * 1024, 16 * 1024, 264
+MAX_CLUSTER, MAX_SMEM = 16, 200 * 1024
 _CHUNK = 8192
 _MAX_SPLITS = 1024
+ROUTES = ('block', 'cluster', 'two_pass')
+
+# route: one of ROUTES; cluster: blocks a plane (two_pass: its splits);
+# chunk: elements a block; smem: dynamic shared memory bytes a block;
+# threads: a block's
+InPlan = collections.namedtuple('InPlan', 'route cluster chunk smem threads')
 
 
 def instance_norm_act_plain(x, eps=1e-5, slope=None, return_stats=False):
@@ -92,8 +111,61 @@ def instance_norm_bwd_plain(x, g, mean, rstd, slope=None):
     return ((gp - gm - xh * gz) * r).to(x.dtype)
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
 def splits_for(hw):
-    return max(1, min(_MAX_SPLITS, -(-hw // _CHUNK)))
+    return max(1, min(_MAX_SPLITS, _cdiv(hw, _CHUNK)))
+
+
+@functools.lru_cache(maxsize=None)
+def in_plan(n, c, h, w, dtype, direction):
+    """How the kernel takes N*C planes of H*W elements of ``dtype``
+    (torch.float32 or torch.bfloat16), ``direction`` 'forward' or
+    'backward' (csrc/instance_norm.cu make_plan, which chip_smoke.py holds
+    equal to this).  One plane is cut into ``cluster`` contiguous chunks of
+    ``chunk`` elements (a multiple of one 16-byte vector), one a block; the
+    blocks of a plane form one thread-block cluster, each holding its chunk
+    (x, and g backward) in ``smem`` bytes of shared memory.  Forward and
+    backward are one launch each on the 'block' and 'cluster' routes, two on
+    'two_pass'."""
+    if direction not in ('forward', 'backward'):
+        raise ValueError('in_plan: direction must be forward or backward, '
+                         'got %r' % (direction,))
+    esize = 4 if dtype == torch.float32 else 2
+    vec = 16 // esize
+    bpe = esize * (2 if direction == 'backward' else 1)
+    pbytes = h * w * bpe
+    want = max(_cdiv(pbytes, TARGET_BYTES),
+               min(_cdiv(FILL_BLOCKS, n * c), pbytes // MIN_BYTES))
+    r = 1
+    while r < want and r < MAX_CLUSTER:
+        r *= 2
+    chunk = _cdiv(_cdiv(h * w, r), vec) * vec
+    smem = (chunk + vec) * bpe
+    if smem > MAX_SMEM:
+        splits = splits_for(h * w)
+        return InPlan('two_pass', splits, _cdiv(h * w, splits), 0, 256)
+    nbytes = chunk * bpe
+    threads = (512 if nbytes >= 128 * 1024 else 256 if nbytes >= 64 * 1024
+               else 128)
+    return InPlan('cluster' if r > 1 else 'block', r, chunk, smem, threads)
+
+
+def _aligned(t):
+    """t, or a copy of it where it does not start on a 16-byte boundary (a
+    view into a larger tensor): the kernels move 16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _workspace(plan, nc, device):
+    """(kept tensor, pointer, floats) of the two-pass route's partials."""
+    if plan.route != 'two_pass':
+        return None, None, 0
+    part = torch.empty((2 * nc * plan.cluster,), dtype=torch.float32,
+                       device=device)
+    return part, part.data_ptr(), part.numel()
 
 
 def _act_args(slope):
@@ -111,18 +183,17 @@ def instance_norm_act(x, eps=1e-5, slope=None, return_stats=False):
         raise ValueError('instance_norm_act: x must be a non-empty (N, C, H, '
                          'W) tensor, got %s' % (tuple(x.shape),))
     n, c, h, w = x.shape
-    nc, hw = n * c, h * w
-    splits = splits_for(hw)
-    partials = torch.empty((nc * splits * 2,), dtype=torch.float32,
-                           device=x.device)
+    x = _aligned(x)
+    part, pptr, nws = _workspace(in_plan(n, c, h, w, x.dtype, 'forward'),
+                                 n * c, x.device)
     y = torch.empty_like(x)
     stats = (torch.empty((2, n, c), dtype=torch.float32, device=x.device)
              if return_stats else None)
     lib = build.load('instance_norm', _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.instance_norm_act_fwd(
-            x.data_ptr(), y.data_ptr(), partials.data_ptr(),
-            None if stats is None else stats.data_ptr(), nc, hw, splits,
+            x.data_ptr(), y.data_ptr(), pptr, nws,
+            None if stats is None else stats.data_ptr(), n * c, h * w,
             float(eps), *_act_args(slope), DTYPE_CODES[x.dtype],
             stream_arg(x))
         instance_norm_act.launches += 1
@@ -184,17 +255,16 @@ def instance_norm_bwd(x, g, mean, rstd, slope=None):
                          % (tuple(x.shape), tuple(g.shape)))
     _check_stats('instance_norm_bwd', x, mean, rstd)
     n, c, h, w = x.shape
-    nc, hw = n * c, h * w
-    splits = splits_for(hw)
-    partials = torch.empty((nc * splits * 2,), dtype=torch.float32,
-                           device=x.device)
+    x, g = _aligned(x), _aligned(g)
+    part, pptr, nws = _workspace(in_plan(n, c, h, w, x.dtype, 'backward'),
+                                 n * c, x.device)
     dx = torch.empty_like(x)
     lib = build.load('instance_norm', _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.instance_norm_act_bwd(
             x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            dx.data_ptr(), partials.data_ptr(), nc, hw, splits,
-            *_act_args(slope), DTYPE_CODES[x.dtype], stream_arg(x))
+            dx.data_ptr(), pptr, nws, n * c, h * w, *_act_args(slope),
+            DTYPE_CODES[x.dtype], stream_arg(x))
         instance_norm_bwd.launches += 1
     raise_on_error('instance_norm_bwd', err)
     return dx
