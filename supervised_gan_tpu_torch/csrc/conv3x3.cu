@@ -15,8 +15,8 @@
 // 3xTF32 m16n8k8; cp.async copies one chunk of input channels ahead,
 // transposed in shared memory into channels-last tiles for ldmatrix), then
 // the bias in f32 and the output in the input's type.  It replaced a
-// CUDA-core loop (f32 FMAs, bf16 widened to f32 as staged) that is still
-// the main loop of conv3x3_in.cu, in conv3x3_tile.cuh.
+// CUDA-core loop (f32 FMAs, bf16 widened to f32 as staged); conv3x3_in.cu
+// runs the same main loop with the InstanceNorm statistics in its epilogue.
 //   * The epilogue stores straight from the accumulator fragments: a store
 //     instruction writes 8 consecutive pixels of 4 output channels, whole
 //     32-byte sectors in f32 and half sectors in bf16.
@@ -30,15 +30,13 @@
 
 #include <cooperative_groups.h>
 
-#include "conv3x3_mma.cuh"
+#include "conv3x3_epilogue.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
 using namespace conv3x3_mma;
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+using namespace conv3x3_epilogue;
 
 // The blocks a launch keeps resident (132 SMs, two blocks each) and the
 // largest portable cluster.
@@ -78,13 +76,11 @@ conv3x3_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   T* yn = y + (size_t)n * Co * plane;
   // element f = (mt * 4 + nt) * 4 + j of this lane's accumulator fragments
   auto out = [&](int f, float v) {
-    const int mt = f >> 4, nt = (f >> 2) & 3, j = f & 3;
-    const int oy = oy0 + warp_m * 2 + mt;
-    const int co = co0 + warp_n * 32 + nt * 8 + 2 * (lane & 3) + (j & 1);
-    const int ox = ox0 + (lane >> 2) + 8 * (j >> 1);
-    if (oy < H && co < Co && ox < W)
-      store(yn + (size_t)co * plane + (size_t)oy * W + ox,
-            v + (bias != nullptr ? bias[co] : 0.f));
+    const Pos p = frag_pos(oy0, co0, ox0, warp_m, warp_n, lane, f >> 4,
+                           (f >> 2) & 3, f & 3);
+    if (p.oy < H && p.co < Co && p.ox < W)
+      store(yn + (size_t)p.co * plane + (size_t)p.oy * W + p.ox,
+            v + (bias != nullptr ? bias[p.co] : 0.f));
   };
   if (splits == 1) {
 #pragma unroll
@@ -124,12 +120,7 @@ int launch(const void* x, const void* w, const float* bias, void* y, int N,
   // resident blocks
   const int blocks = tiles_w * tiles_h * co_tiles * N;
   const int splits = max(1, min(min(MAX_SPLIT, chunks), RESIDENT / blocks));
-  // 16-byte copies: the weights when each output channel's run of Ci * 9
-  // values starts 16-byte aligned, the halo when every row does
-  const bool wvec = (Ci * 9 * sizeof(T)) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const bool xvec = W % Elem<T>::XV == 0 &&
-                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool wvec = weights_vec<T>(w, Ci), xvec = halo_vec<T>(x, W);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles_w * tiles_h * splits, co_tiles, N);
   cfg.blockDim = dim3(THREADS);

@@ -6,9 +6,17 @@ Replaces supervised_gan_tpu/ops/pallas/conv3x3_in.py `_kernel` (:65),
 reached through `_fwd_impl` (:114): the statistics come from the float32
 accumulator with the bias added, before y is cast to x's dtype, and are
 folded as :157-162 there do: mean = sum / HW, var = max(E[y^2] - mean^2, 0),
-rstd = 1 / sqrt(var + eps).  Bound on the H100: arithmetic (see the source
-note).  The kernel takes any N, C_in, C_out, H and W; where the port uses it
-is decided by ops.conv.conv3x3_in_supported.
+rstd = 1 / sqrt(var + eps).  The kernel takes any N, C_in, C_out, H and W;
+where the port uses it is decided by ops.conv.conv3x3_in_supported.
+
+Design: conv3x3's tensor-core implicit GEMM (csrc/conv3x3_mma.cuh, one block
+an 8 x 16 pixel tile of 64 output channels, over every input channel), with
+the statistics in its epilogue: each block writes one (sum, sum of squares)
+a channel of its tile into a float32 workspace of ``workspace_floats``
+floats, laid out [n][tile][channel], and a second kernel folds each plane's
+tiles in a fixed order, every quotient, product and difference rounded
+apart.  Bound on the H100: the convolution's operations in float32 (3xTF32
+on the tensor cores), its bytes in bfloat16 (see the source note).
 
 Layout: x (N, Ci, H, W), w (Co, Ci, 3, 3) as torch.nn.Conv2d, b (Co,) or
 None; y (N, Co, H, W) in x's dtype (float32 or bfloat16); mean and rstd
@@ -30,6 +38,21 @@ _SIGNATURES = {
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
                        ctypes.c_int),
 }
+
+
+# the kernel's pixel tile (TH x TW of csrc/conv3x3_mma.cuh)
+TILE_H, TILE_W = 8, 16
+
+
+def pixel_tiles(h, w):
+    """The kernel's pixel tiles of one image: its first grid dimension."""
+    return -(-h // TILE_H) * -(-w // TILE_W)
+
+
+def workspace_floats(n, co, h, w):
+    """conv3x3_in_workspace: a (sum, sum of squares) for each image, pixel
+    tile and output channel."""
+    return 2 * n * co * pixel_tiles(h, w)
 
 
 def conv3x3_in_stats_plain(x, w, b=None, eps=1e-5):
