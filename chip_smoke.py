@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DSGAN sampler, DSGAN train step, stage-1 label
-GAN and the README DSGAN workflow on one CUDA card, and hold every
+GAN, the README DSGAN workflow and the bench entry point on one CUDA card,
+on the hand-written kernels and under --no_pallas, and hold every
 hand-written kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
@@ -97,7 +98,10 @@ comparison is float32 against float32.
      x 8 (counts set to 0 just before, read just after); once more in
      bfloat16; the forward alone (wall time, torch.profiler device time and
      busy share); one sample on the card against the CPU plain versions;
-     then 8 samples and the card-vs-CPU sample with the region's gate on;
+     under --no_pallas one sample on the card (library calls, no launch)
+     against the CPU plain versions within 2e-3, and 2 samples through the
+     sampler with every launch count 0; then 8 samples and the card-vs-CPU
+     sample with the region's gate on;
   9. training: a synthetic set of 8 1024^2 RGB PNGs (label in R and G,
      image in B), then the port's train entry point
      (supervised_gan_tpu_torch.train.main) with the bench.py DSGAN flags,
@@ -115,7 +119,15 @@ comparison is float32 against float32.
      card's after the D updates: each loss term within 1e-3 relative and
      every parameter's gradient within 5e-2 relative in L2, beside the
      noise floor of a CPU step with weights scaled by 1 + 1e-6 N(0, 1)
-     (see phase_reference_step);
+     (see phase_reference_step); then the same with the card's step under
+     --no_pallas (library calls, no launch); then the train entry point
+     with --profile_dir, 20 f32 steps, its trace of steps 10-20 written
+     with every launch's device record (phase_profile_dir); then the bench
+     entry point (supervised_gan_tpu_torch.bench.main) in turns: kernels
+     bf16, --no_pallas bf16, --no_pallas f32, kernels f32, each 3 windows
+     of BENCH_WINDOW_STEPS steps and a BENCH_TRACE_STEPS-step trace, its
+     record printed, finite, its device fields set, its wrappers' launches
+     a step those of this phase (all 0 under --no_pallas; phase_bench);
  11. the stage-1 label GAN (--model fcgan), the command of
      tools/recipe_r05.py:71-84 at its widths and 512 px, on the synthetic
      set: 8 bf16 and 4 f32 steps with exact launch counts and finite
@@ -144,7 +156,9 @@ results/chip_smoke.
 import collections
 import contextlib
 import ctypes
+import gc
 import importlib
+import io
 import json
 import re
 import os
@@ -164,6 +178,7 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 from PIL import Image  # noqa: E402
 
+from supervised_gan_tpu_torch import bench  # noqa: E402
 from supervised_gan_tpu_torch import nn as tnn  # noqa: E402
 from supervised_gan_tpu_torch import test as sampler  # noqa: E402
 from supervised_gan_tpu_torch import train as trainer  # noqa: E402
@@ -178,6 +193,8 @@ from supervised_gan_tpu_torch.ops.kernels import common  # noqa: E402
 from supervised_gan_tpu_torch.ops.kernels import functions  # noqa: E402
 from supervised_gan_tpu_torch.options import TrainOptions  # noqa: E402
 from supervised_gan_tpu_torch.utils import pth  # noqa: E402
+from supervised_gan_tpu_torch.utils.profile import (  # noqa: E402
+    PRIMER_SPINS, device_rows, traced)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, 'chiprun_out')
@@ -1719,79 +1736,33 @@ def run_sampler(flags, samples, results_dir, per_sample=SAMPLER_PER_SAMPLE,
     return r, counts
 
 
-def phase_reference(g1, g2):
-    """One 512 px sample through the kernels on the card and through the
-    plain versions on the CPU, same weights and noise."""
+def phase_reference(g1, g2, card_kernels=True):
+    """One 512 px sample on the card, through the kernels (or with
+    ``card_kernels`` False through the library calls, as --no_pallas runs
+    it), and through the plain versions on the CPU, same weights and
+    noise."""
     gen = torch.Generator().manual_seed(7)
     n1 = torch.randn((1, 8, 4, 4), generator=gen)
     n2 = torch.randn((1, 8, 8, 8), generator=gen)
     outs = []
-    for dev in (DEV, torch.device('cpu')):
+    for dev, on in ((DEV, card_kernels), (torch.device('cpu'), True)):
         a, b = g1.to(dev), g2.to(dev)
+        K.set_kernels_enabled(on)
+        K.reset_launch_counts()
         with torch.no_grad():
             fa = a(n1.to(dev))
             label = bilinear_upsample(fa, 2)
             fb = b(label, n2.to(dev))
+        check(on or not any(K.launch_counts().values()),
+              'a library-route sample launched %s' % K.launch_counts())
         outs.append([t.cpu() for t in (fa, label, fb)])
+    K.set_kernels_enabled(True)
     for name, x, y in zip(('G1', 'transform', 'G2'), *outs):
         e = err(x, y)
         print('  reference %-9s shape %s max abs err %.3e' % (name,
                                                              tuple(x.shape), e))
         check(e <= 2e-3, 'card vs CPU reference %s: %.3g' % (name, e))
     check(tuple(outs[0][2].shape) == (1, 1, 512, 512), 'G2 output shape')
-
-
-def traced(run, n):
-    """A torch.profiler trace of n runs of fn in which every kernel launch
-    has its device record.  The profiler can lose the device records of
-    the first kernels of a trace (1-5 of them on the H100, the first
-    wrapper kernel of a train step among them when there are 5), so each
-    trace opens with PRIMER_SPINS spin kernels and a pause, which
-    device_rows leaves out; a trace that still lost a record of the runs
-    is taken again, up to TRACES times.  Returns (the profile, how many of
-    the primer's records it lost); a profiler that records no device
-    kernel at all is returned as it is."""
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(1, TRACES + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(PRIMER_SPINS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            time.sleep(0.02)
-            for _ in range(n):
-                run()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        launches = sum(e.count for e in events
-                       if e.key in LAUNCH_CALLS) - PRIMER_SPINS
-        kernels = sum(r[2] * n for r in device_rows(prof, n)
-                      if not r[0].startswith(('Memcpy', 'Memset')))
-        spins = sum(e.count for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and 'spin_kernel' in e.key)
-        if launches == kernels or kernels == 0:
-            return prof, PRIMER_SPINS - spins
-        print('  trace %d: %d kernel launches, %d device records'
-              % (attempt, launches, kernels))
-    check(False, 'profiler lost device records in %d traces' % TRACES)
-
-
-PRIMER_SPINS = 32
-TRACES = 3
-LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel')
-
-
-def device_rows(prof, n):
-    """(key, device ms per run, records per run) of every device event but
-    traced's spin kernels; user annotations on the device timeline
-    (Optimizer.step#Adam.step) span kernels that are counted already."""
-    return [(e.key, e.self_device_time_total / (n * 1e3), e.count / n)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0
-            and not getattr(e, 'is_user_annotation', False)
-            and 'spin_kernel' not in e.key]
 
 
 def profile_rows(run, n, trace_name):
@@ -2125,12 +2096,13 @@ def _grad_diffs(model, ref, noise_only=()):
     return sorted(out, reverse=True)
 
 
-def phase_reference_step(gate=False, dtype='float32'):
-    """One step at 512 px on the card (kernels) and on the CPU (plain
-    versions), same weights, noise and batch, no pool, no dropout, in
-    ``dtype`` (--compute_dtype) on both sides.  ``gate``: the region's gate
-    on, on both sides (the biases it takes are checked for a gradient only:
-    it is rounding noise, as around any norm).
+def phase_reference_step(gate=False, dtype='float32', no_pallas=False):
+    """One step at 512 px on the card (kernels; with ``no_pallas`` the
+    library calls) and on the CPU (plain versions), same weights, noise and
+    batch, no pool, no dropout, in ``dtype`` (--compute_dtype) on both
+    sides.  ``gate``: the region's gate on, on both sides (the biases it
+    takes are checked for a gradient only: it is rounding noise, as around
+    any norm).
 
     Tolerances, f32: each loss term within 1e-3 relative, each parameter's
     gradient within 5e-2 relative in L2.  bf16 (gate on, the README step):
@@ -2154,17 +2126,22 @@ def phase_reference_step(gate=False, dtype='float32'):
     boundary), and prints how far that moves each gradient: the noise
     floor."""
     bf16 = dtype == 'bfloat16'
-    tag = '_ref%s%s' % ('_gated' if gate else '', '_bf16' if bf16 else '')
+    tag = '_ref%s%s%s' % ('_gated' if gate else '', '_bf16' if bf16 else '',
+                          '_no_pallas' if no_pallas else '')
     with region_gate(gate):
         return _reference_step(REGION_BIASES if gate else (), tag, dtype,
                                loss_tol=1e-2 if bf16 else 1e-3,
-                               grad_tol=5e-2, floor_factor=2 if bf16 else 0)
+                               grad_tol=5e-2, floor_factor=2 if bf16 else 0,
+                               card_flags=['--no_pallas'] if no_pallas
+                               else [])
 
 
 def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
-                    floor_factor):
+                    floor_factor, card_flags):
     extra = ['--compute_dtype', dtype, '--pool_size', '0', '--no_dropout2']
-    card = create_model(train_opt(extra + ['--name', TRAIN_NAME + tag]))
+    # the CPU models, built after the card's step, turn the kernels back on
+    card = create_model(train_opt(extra + card_flags
+                                  + ['--name', TRAIN_NAME + tag]))
     gen = torch.Generator().manual_seed(11)
     shapes = card._noise_shapes()
     noises = {k: torch.randn(v, generator=gen) for k, v in shapes.items()}
@@ -2184,10 +2161,15 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
         return m
 
     card.set_input(batch)
+    K.reset_launch_counts()
     t = time.perf_counter()
     m_card = _step_in_parts(card)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t
+    card_launches = K.launch_counts()
+    check(not card_flags or not any(card_launches.values()),
+          'reference step %s: the library route launched %s'
+          % (card_flags, card_launches))
     cpu = cpu_model(tag + '_cpu')
     t = time.perf_counter()
     m_cpu = _step_in_parts(cpu, d_from=card)
@@ -2228,7 +2210,9 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
     a, f, lim, n = held[0]
     check(a <= lim, 'reference step %s: %s gradient differs by %.3g relative '
           'in L2 (floor %.3g, limit %.3g)' % (dtype, n, a, f, lim))
-    out = dict(dtype=dtype, card_s=card_s, cpu_s=cpu_s, losses_card=m_card,
+    out = dict(dtype=dtype, card_flags=card_flags,
+               card_launches=card_launches, card_s=card_s, cpu_s=cpu_s,
+               losses_card=m_card,
                losses_cpu=m_cpu, worst_loss_rel=worst_metric,
                loss_tol=loss_tol, grad_tol=grad_tol,
                floor_factor=floor_factor, worst_grads=worst[:10],
@@ -2236,6 +2220,104 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
     del card, cpu
     torch.cuda.empty_cache()
     return out
+
+
+# The bench entry point's arms, run in turns: (name, flags after its
+# DSGAN_ARGS).  Its command line runs 3 windows of 30 steps and a 12-step
+# trace; here the windows are BENCH_WINDOW_STEPS steps and the trace
+# BENCH_TRACE_STEPS, which keeps this script within twice its time before
+# the phase was added.
+BENCH_ARMS = (('kernels bf16', []),
+              ('no_pallas bf16', ['--no_pallas']),
+              ('no_pallas f32', ['--no_pallas', '--compute_dtype', 'float32']),
+              ('kernels f32', ['--compute_dtype', 'float32']))
+BENCH_WINDOWS = 3
+BENCH_WINDOW_STEPS = 10
+BENCH_TRACE_STEPS = 4
+BENCH_DEVICE_FIELDS = ('device_ms_per_step', 'device_kernels_per_step',
+                       'busy_share', 'host_gap_ms', 'device_rate_img_s',
+                       'device', 'trace_primer_records_lost')
+
+
+def phase_bench():
+    """supervised_gan_tpu_torch.bench.main on each arm in turn, its record
+    printed as a line.  Checked: finite losses, value > 0, three windows,
+    every device field set (bench.main fails when a launch lost its device
+    record), the gates, and the wrappers' launches a step: the train
+    phase's on the kernels' route (0 for the region's two), every one 0
+    under --no_pallas."""
+    out = {}
+    for name, flags in BENCH_ARMS:
+        kernels = '--no_pallas' not in flags
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rec = bench.main(flags + [
+                '--checkpoints_dir', CKPT_DIR,
+                '--name', '%s_bench_%s' % (NAME, name.replace(' ', '_'))],
+                windows=BENCH_WINDOWS, window_steps=BENCH_WINDOW_STEPS,
+                trace_steps=BENCH_TRACE_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print('  bench %s: %s' % (name, buf.getvalue().splitlines()[-1]))
+        check(rec['finite'] and rec['value'] > 0
+              and len(rec['windows_img_s']) == BENCH_WINDOWS,
+              'bench %s: not finite or no rate' % name)
+        check(all(rec[k] is not None for k in BENCH_DEVICE_FIELDS),
+              'bench %s: a device field is null' % name)
+        check(rec['gates']['kernels'] == kernels
+              and rec['gates']['tf32'] == {'cudnn': False, 'matmul': False},
+              'bench %s: gates %s' % (name, rec['gates']))
+        want = {k: float(v) for k, v in expected(
+            LAUNCHES_PER_STEP if kernels else {}, 1).items()}
+        check(rec['launches_per_step'] == want, 'bench %s: launches a step '
+              '%s, expected %s' % (name, rec['launches_per_step'], want))
+        out[name] = rec
+    K.set_kernels_enabled(True)
+    return out
+
+
+PROFILE_STEPS, PROFILE_IMAGES = 20, 4
+
+
+def phase_profile_dir():
+    """The train entry point with --profile_dir: 20 f32 steps of the bench
+    configuration (5 epochs of 4 images).  Checked: one *.pt.trace.json
+    written, the line printed, and the file's device kernels: as many as
+    the trace counted (every launch of steps 10-20 with its record), at
+    least 11 x the wrappers' launches a step."""
+    d = os.path.join(RESULTS_DIR, 'profile')
+    name = TRAIN_NAME + '_profile_dir'
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        r = trainer.main(TRAIN_FLAGS + ON_CARD + [
+            '--compute_dtype', 'float32', '--name', name,
+            '--niter', str(PROFILE_STEPS // PROFILE_IMAGES),
+            '--niter_decay', '0', '--max_dataset_size', str(PROFILE_IMAGES),
+            '--print_freq', '100', '--display_freq', '100',
+            '--save_epoch_freq', '100', '--profile_dir', d])
+    check('profiler trace written to %s' % d in buf.getvalue(),
+          '--profile_dir: no "profiler trace written" line')
+    t = r['trace']
+    check(r['steps'] == PROFILE_STEPS and t is not None
+          and os.listdir(d) == [os.path.basename(t['path'])]
+          and t['path'].endswith('.pt.trace.json'),
+          '--profile_dir: %d steps, trace %s, files %s'
+          % (r['steps'], t, os.listdir(d)))
+    with open(t['path']) as f:
+        events = json.load(f)['traceEvents']
+    kernels = sum(1 for e in events if e.get('cat') == 'kernel'
+                  and 'spin_kernel' not in e.get('name', ''))
+    floor = 11 * sum(LAUNCHES_PER_STEP.values())
+    print('  %s: %d steps; the trace holds %d device kernels (counted %d, '
+          '%d launches; %d of the %d primer records lost), %.1f MB'
+          % (name, r['steps'], kernels, t['kernels'], t['launches'],
+             t['primer_lost'], PRIMER_SPINS,
+             os.path.getsize(t['path']) / 2 ** 20))
+    check(kernels == t['kernels'] >= floor, '--profile_dir: %d device '
+          'kernels in the file, %d counted, at least %d expected'
+          % (kernels, t['kernels'], floor))
+    del events
+    return dict(t, file_kernels=kernels, steps=r['steps'])
 
 
 def main():
@@ -2401,6 +2483,14 @@ def main():
     fwd = phase_forward(g1, g2)
     print('== reference: one 512 px sample, card kernels vs CPU plain')
     phase_reference(g1, g2)
+    print('== --no_pallas: one 512 px sample, card library calls vs CPU '
+          'plain; 2 samples through the sampler, no kernel launched')
+    phase_reference(g1, g2, card_kernels=False)
+    r_np, counts_np = run_sampler(DSGAN_FLAGS + ['--no_pallas'], 2,
+                                  os.path.join(RESULTS_DIR, 'no_pallas'), {})
+    K.set_kernels_enabled(True)
+    print('sampler --no_pallas: 2 samples in %.3f s; launches %s'
+          % (r_np['loop_seconds'], counts_np))
     print('== sampler with the region\'s gate on: %d samples, and one sample '
           'card vs CPU' % SAMPLES)
     with region_gate(True):
@@ -2422,6 +2512,15 @@ def main():
     prof = phase_profile_step(device_kernels)
     print('== reference: one f32 train step at 512 px, card vs CPU plain')
     ref_step = phase_reference_step()
+    print('== reference under --no_pallas: one f32 train step at 512 px, '
+          'card library calls vs CPU plain')
+    ref_step_np = phase_reference_step(no_pallas=True)
+    print('== --profile_dir: a trace of steps 10-20 of a %d-step f32 run'
+          % PROFILE_STEPS)
+    profile_dir = phase_profile_dir()
+    print('== the bench entry point: kernels and --no_pallas, bf16 and f32, '
+          'in turns')
+    bench_arms = phase_bench()
 
     print('== stage 1: the label GAN (--model fcgan), recipe command, 512 px')
     stage1_16 = stage1_train('bfloat16', TRAIN_IMAGES)
@@ -2488,6 +2587,10 @@ def main():
                                gated_loop_seconds=r_gated['loop_seconds'],
                                gated_sample_seconds=r_gated['sample_seconds'],
                                gated_launches=counts_gated),
+                  bench=bench_arms, profile_dir=profile_dir,
+                  no_pallas=dict(sampler_launches=counts_np,
+                                 sampler_loop_seconds=r_np['loop_seconds'],
+                                 reference_step=ref_step_np),
                   train=dict(bf16=train16, f32=train32, profile=prof,
                              reference_step=ref_step,
                              reference_step_gated=ref_step_gated,

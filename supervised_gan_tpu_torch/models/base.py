@@ -2,7 +2,9 @@
 supervised_gan_tpu/models/base.py; reference models/base_model.py:5-64).
 
 It holds the device (``--gpu_ids``: ``cuda:<first id>``, or the CPU for
-``-1``), the compute dtype, and three generators seeded from
+``-1``), sets the ops' kernel switch from ``--no_pallas`` (as the JAX
+package's model init sets PALLAS_ENABLED), the compute dtype, and three
+generators seeded from
 ``--manualSeed``: a CPU one for weight init, one on the device for every
 noise draw and dropout mask, and a CPU one for the image pools' decisions.
 They do not reproduce ``jax.random``'s numbers.
@@ -22,6 +24,7 @@ import os
 import torch
 
 from .. import nn
+from ..ops.kernels import set_kernels_enabled
 from ..utils import pth as pthio
 
 
@@ -43,6 +46,16 @@ def device_from_opt(gpu_ids):
     return torch.device('cuda', gpu_ids[0])
 
 
+def disable_tf32():
+    """Float32 means float32 on both routes.  The kernels' f32 route is
+    3xTF32, f32 accurate; cuDNN's convolutions and cuBLAS's matmuls would
+    run an f32 input as one TF32 product (10-bit mantissa) by default, so a
+    --no_pallas f32 step would be a TF32 step.  The entry points turn that
+    off for both."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def adam(groups, beta1):
     """optax.scale_by_adam(b1=beta1, b2=0.999, eps=1e-8) with the learning
     rate applied per parameter group (models/base.py:179-218 there):
@@ -61,6 +74,7 @@ class BaseModel:
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
         os.makedirs(self.save_dir, exist_ok=True)
         self.device = device_from_opt(opt.gpu_ids)
+        set_kernels_enabled(not opt.no_pallas)
         seed = opt.manualSeed if opt.manualSeed is not None else 0
         self.init_generator = torch.Generator().manual_seed(seed)
         self.noise_generator = torch.Generator(

@@ -21,10 +21,11 @@ the norm removes it exactly, so it stays in the ``state_dict`` but gets no
 gradient, and Adam leaves it frozen.
 
 With ``_CONV3_IN_FUSED`` (the environment's ``SGAN_TPU_CONV3_IN=1``; off by
-default, as in the JAX package, nn/core.py:88-94 there) a
-[Conv2d 3x3 s1 p1, InstanceNorm2d, (Leaky)ReLU?] run that
-``ops.conv3x3_in_supported`` admits is ONE fused conv3x3 + IN region
-(nn/core.py:149-176 there).  Its conv bias is passed in, not skipped: the
+default, as in the JAX package, nn/core.py:88-94 there) and the kernels
+switched on (not ``--no_pallas``: the JAX region needs PALLAS_ENABLED too,
+nn/core.py:149 there) a [Conv2d 3x3 s1 p1, InstanceNorm2d, (Leaky)ReLU?]
+run that ``ops.conv3x3_in_supported`` admits is ONE fused conv3x3 + IN
+region (nn/core.py:149-176 there).  Its conv bias is passed in, not skipped: the
 JAX region takes it, so it gets a gradient (sum of the norm's input
 cotangent, rounding noise) and Adam moves it.
 
@@ -40,6 +41,7 @@ from torch import nn
 
 from ..ops import (batch_norm, bilinear_upsample, conv2d, conv3x3_in_act,
                    conv3x3_in_supported, conv_transpose2d, instance_norm_act)
+from ..ops.kernels import kernels_enabled
 
 _CONV3_IN_FUSED = os.environ.get('SGAN_TPU_CONV3_IN', '0') == '1'
 
@@ -184,15 +186,16 @@ class Sequential(nn.Sequential):
     LeakyReLU runs as ONE call of the fused IN kernel with that slope
     (nn/core.py:208-216 of the JAX package), and a conv whose bias the next
     norm cancels runs without it (``_inert_bias_at``).  With
-    ``_CONV3_IN_FUSED``, a conv3x3 + IN (+ act) run is one fused region
-    (``_conv3x3_in_at``)."""
+    ``_CONV3_IN_FUSED`` and the kernels on, a conv3x3 + IN (+ act) run is
+    one fused region (``_conv3x3_in_at``)."""
 
     def forward(self, x):
         layers = list(self)
         i = 0
         while i < len(layers):
             layer = layers[i]
-            if _CONV3_IN_FUSED and self._conv3x3_in_at(i, x):
+            if (_CONV3_IN_FUSED and kernels_enabled()
+                    and self._conv3x3_in_at(i, x)):
                 slope = _slope_of(layers[i + 2]) if i + 2 < len(layers) \
                     else None
                 x = conv3x3_in_act(x, layer.weight, layer.bias,

@@ -4,10 +4,12 @@ Counterpart of supervised_gan_tpu/ops/conv.py `conv2d` (:66) and
 `conv_transpose2d` (:142).  The shapes a hand-written kernel serves go to
 its autograd Function (ops/kernels/functions.py), whose backward runs on
 kernels too; every other shape (the PatchGAN heads' k4 s1 p1 convs) goes to
-torch.nn.functional, where the JAX package used plain XLA.  The convolution
-runs in x's dtype (the caller casts for --compute_dtype) with float32
-accumulation; the weight is cast to x's dtype on the way in, so its
-gradient lands in the parameter's float32.
+torch.nn.functional, where the JAX package used plain XLA.  With the
+kernels switched off (``--no_pallas``, ops/kernels `set_kernels_enabled`)
+every shape goes to torch.nn.functional, as the JAX package's --no_pallas
+sends every conv to XLA.  The convolution runs in x's dtype (the caller
+casts for --compute_dtype) with float32 accumulation; the weight is cast to
+x's dtype on the way in, so its gradient lands in the parameter's float32.
 
 `conv3x3_in_act` is the fused conv3x3 + InstanceNorm (+ activation) region
 of supervised_gan_tpu/ops/pallas/conv3x3_in.py, and `conv3x3_in_supported`
@@ -25,7 +27,8 @@ import os
 
 import torch.nn.functional as F
 
-from .kernels import Conv3x3, Conv3x3InAct, Conv4s2, ConvT4s2
+from .kernels import (Conv3x3, Conv3x3InAct, Conv4s2, ConvT4s2,
+                      kernels_enabled)
 
 # the JAX package's pixel minimum, read as it reads it: below it the region
 # does not run
@@ -40,11 +43,12 @@ def conv2d(x, w, b=None, stride=1, padding=0):
     """x (N, Ci, H, W), w (Co, Ci, kh, kw): torch.nn.Conv2d semantics."""
     w = w.to(x.dtype)
     k = tuple(w.shape[2:])
-    if k == (3, 3) and stride == 1 and padding == 1:
-        return Conv3x3.apply(x, w, _bias(b, x))
-    if (k == (4, 4) and stride == 2 and padding == 1
-            and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
-        return Conv4s2.apply(x, w, _bias(b, x))
+    if kernels_enabled():
+        if k == (3, 3) and stride == 1 and padding == 1:
+            return Conv3x3.apply(x, w, _bias(b, x))
+        if (k == (4, 4) and stride == 2 and padding == 1
+                and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0):
+            return Conv4s2.apply(x, w, _bias(b, x))
     return F.conv2d(x, w, _bias(b, x), stride, padding)
 
 
@@ -52,8 +56,8 @@ def conv_transpose2d(x, w, b=None, stride=2, padding=1, output_padding=0):
     """x (N, Ci, H, W), w (Ci, Co, kh, kw): torch.nn.ConvTranspose2d
     semantics."""
     w = w.to(x.dtype)
-    if (tuple(w.shape[2:]) == (4, 4) and stride == 2 and padding == 1
-            and output_padding == 0):
+    if (kernels_enabled() and tuple(w.shape[2:]) == (4, 4) and stride == 2
+            and padding == 1 and output_padding == 0):
         return ConvT4s2.apply(x, w, _bias(b, x))
     return F.conv_transpose2d(x, w, _bias(b, x), stride, padding,
                               output_padding)

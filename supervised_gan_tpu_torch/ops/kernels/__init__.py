@@ -1,7 +1,12 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version.  A wrapper takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernel (counting the launch in ``<wrapper>.launches``)
-or raises.  ``functions`` holds the autograd Functions built on them."""
+or raises.  ``functions`` holds the autograd Functions built on them.
+
+Whether the ops reach them at all is one switch, ``set_kernels_enabled``:
+on (the default), ``ops.conv`` and ``ops.norm`` dispatch to the Functions;
+off (``--no_pallas``), every site takes its PyTorch library call instead.
+"""
 
 from .conv3x3 import conv3x3, conv3x3_plain
 from .conv3x3_dw import conv3x3_dw, conv3x3_dw_plain
@@ -13,6 +18,22 @@ from .instance_norm import (instance_norm_act, instance_norm_act_plain,
                             instance_norm_bwd, instance_norm_bwd_plain)
 from .functions import (Conv3x3, Conv3x3InAct, Conv4s2, ConvT4s2,
                         InstanceNormAct)
+
+# The dispatch switch: the counterpart of the JAX package's PALLAS_ENABLED
+# and set_pallas_enabled (nn/core.py:85-120 there), which its model init sets
+# from --no_pallas (models/base.py:236-242 there), as models/base.py does
+# here.  Read at every call, so a model built later switches the route.
+_KERNELS_ENABLED = True
+
+
+def set_kernels_enabled(flag):
+    global _KERNELS_ENABLED
+    _KERNELS_ENABLED = bool(flag)
+
+
+def kernels_enabled():
+    return _KERNELS_ENABLED
+
 
 KERNELS = (conv3x3, convt4s2, instance_norm_act, conv3x3_dw,
            instance_norm_bwd, conv4s2, conv3x3_in_stats, instance_norm_apply)
@@ -35,4 +56,4 @@ __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_dw", "conv3x3_dw_plain",
            "instance_norm_bwd", "instance_norm_bwd_plain",
            "Conv3x3", "Conv3x3InAct", "Conv4s2", "ConvT4s2",
            "InstanceNormAct", "KERNELS", "reset_launch_counts",
-           "launch_counts"]
+           "launch_counts", "set_kernels_enabled", "kernels_enabled"]

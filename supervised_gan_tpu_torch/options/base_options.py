@@ -17,10 +17,8 @@ NOT_YET_PORTED = {
     'dcn_coordinator': '',
     'dcn_num_processes': 0,
     'dcn_process_id': 0,
-    'no_pallas': False,
     # training flags (TrainOptions)
     'steps_per_dispatch': 1,
-    'profile_dir': '',
 }
 
 
@@ -149,7 +147,9 @@ class BaseOptions:
                        help='if >0, shard the batch over this many devices (0 = all local devices when batchSize divides, else 1)')
         p.add_argument('--spatial_mesh', type=int, default=0,
                        help='if >1, spatially partition the image height over this many devices (batch-1 latency scaling; composes with --data_mesh into a 2-D mesh)')
-        p.add_argument('--no_pallas', action='store_true', help='disable Pallas kernels (pure XLA path)')
+        p.add_argument('--no_pallas', action='store_true',
+                       help='disable the hand-written kernels (every conv and '
+                            'norm site takes its PyTorch library call)')
         p.add_argument('--no_native_io', action='store_true', help='disable the C++ image decode path')
         p.add_argument('--cache_data', action='store_true',
                        help='cache decoded+resized images in RAM across epochs '

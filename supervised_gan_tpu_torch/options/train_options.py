@@ -1,6 +1,6 @@
 """Training options: a copy of supervised_gan_tpu/options/train_options.py
-(reference options/train_options.py:4-66).  --steps_per_dispatch above 1
-and --profile_dir are not yet ported and raise (base_options.py)."""
+(reference options/train_options.py:4-66).  --steps_per_dispatch above 1 is
+not yet ported and raises (base_options.py)."""
 
 from .base_options import BaseOptions
 
@@ -66,8 +66,8 @@ class TrainOptions(BaseOptions):
         p.add_argument('--lambda_G2', type=float, default=1, help='weight for G2 GAN loss')
 
         p.add_argument('--profile_dir', type=str, default='',
-                       help='if set, capture a jax.profiler trace of steps '
-                            '10-20 into this directory (TPU timeline)')
+                       help='if set, write a torch.profiler trace of steps '
+                            '10-20 into this directory (*.pt.trace.json)')
         p.add_argument('--steps_per_dispatch', type=int, default=1,
                        help='scan this many training iterations inside one '
                             'device dispatch (TPU; bit-identical to '

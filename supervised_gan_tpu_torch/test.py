@@ -7,7 +7,9 @@
 Draws --how_many samples and writes them with synthetic ``%04d.png`` names
 under results/<name>/<phase>_<which_epoch>/ (index.html + images/), the
 layout the MATLAB evaluation tower consumes.  The conditional models
-(cgan*) iterate a dataset and come with the data pipeline.
+(cgan*) iterate a dataset and come with the data pipeline.  TF32 is off
+(models/base.py `disable_tf32`); --no_pallas runs every conv and norm site
+on its PyTorch library call.
 """
 
 import os
@@ -17,6 +19,7 @@ import torch
 
 from .options import TestOptions
 from .models import create_model
+from .models.base import disable_tf32
 from .utils.visualizer import Visualizer
 from .utils import html
 
@@ -27,6 +30,7 @@ def main(args=None):
     samples with a non-finite output, loop_seconds times the sampling loop,
     split into drawing the samples (up to their finiteness check, which
     waits for the device) and converting and writing the images."""
+    disable_tf32()
     opt = TestOptions().parse(args)
     opt.nThreads = 1
     opt.batchSize = 1

@@ -8,7 +8,17 @@
 It owns the epoch / iteration loop, seeding, the display / print / save
 cadence and the linear lr decay after --niter epochs; each iteration is one
 model.optimize_parameters().  It runs on ``cuda:<first --gpu_ids>``; with no
-CUDA device it raises unless --gpu_ids -1 asks for the CPU.
+CUDA device it raises unless --gpu_ids -1 asks for the CPU.  TF32 is off
+(models/base.py `disable_tf32`).
+
+Unlike the JAX loop, which never blocks, it synchronizes the device after
+every step, so ``step_seconds`` times each step to its end (the bench,
+``python -m supervised_gan_tpu_torch.bench``, times windows of steps with
+no synchronize inside).  --profile_dir traces the steps from total_steps
+== 10 x batchSize to 20 x batchSize (train.py:47-49, 72-76 there) with
+torch.profiler and writes ``<profile_dir>/*.pt.trace.json``; a trace in
+which a kernel launch lost its device record fails the run and is not
+written (utils/profile.py).
 """
 
 import random
@@ -19,14 +29,19 @@ import torch
 
 from .data import CreateDataLoader
 from .models import create_model
+from .models.base import disable_tf32
 from .options import TrainOptions
+from .utils.profile import Trace
 from .utils.visualizer import Visualizer
 
 
 def main(args=None):
-    """Train; returns {'steps', 'step_seconds'}: the iterations run and
-    the wall time of each optimize_parameters() up to a device
-    synchronization (the first includes the kernels' build)."""
+    """Train; returns {'steps', 'step_seconds', 'trace'}: the iterations
+    run, the wall time of each optimize_parameters() up to a device
+    synchronization (the first includes the kernels' build), and for
+    --profile_dir {'path', 'launches', 'kernels', 'primer_lost'} of the
+    trace written (else None)."""
+    disable_tf32()
     opt = TrainOptions().parse(args)
     if opt.manualSeed is None:
         opt.manualSeed = random.randint(1, 10000)
@@ -44,6 +59,7 @@ def main(args=None):
     cuda = model.device.type == 'cuda'
     total_steps = 0
     step_seconds = []
+    trace = written = None
 
     for epoch in range(1, opt.niter + opt.niter_decay + 1):
         epoch_start_time = time.time()
@@ -51,11 +67,21 @@ def main(args=None):
             iter_start_time = time.time()
             total_steps += opt.batchSize
             epoch_iter = total_steps - dataset_size * (epoch - 1)
+            if opt.profile_dir and total_steps == 10 * opt.batchSize:
+                trace = Trace(model.device).start()
             model.set_input(data)
             model.optimize_parameters()
             if cuda:
                 torch.cuda.synchronize(model.device)
             step_seconds.append(time.time() - iter_start_time)
+            if trace is not None and total_steps == 20 * opt.batchSize:
+                trace.stop()
+                written = dict(path=trace.export(opt.profile_dir),
+                               launches=trace.launches,
+                               kernels=trace.kernels,
+                               primer_lost=trace.primer_lost)
+                trace = None
+                print('profiler trace written to %s' % opt.profile_dir)
 
             if total_steps % opt.display_freq == 0:
                 visualizer.display_current_results(
@@ -93,8 +119,12 @@ def main(args=None):
 
         if epoch > opt.niter:
             model.update_learning_rate()
+    if trace is not None:
+        trace.prof.stop()
+        print('profiler trace not written: the run ended at step %d, before '
+              'step %d' % (total_steps, 20 * opt.batchSize))
     return {'steps': total_steps // opt.batchSize,
-            'step_seconds': step_seconds}
+            'step_seconds': step_seconds, 'trace': written}
 
 
 if __name__ == '__main__':

@@ -47,3 +47,12 @@ def test_port_sources_do_not_name_jax():
                     if needle in text:
                         offenders.append((path, needle))
     assert not offenders
+
+
+def test_walk_covers_the_entry_points():
+    """The import probe above walks every module: the drivers, the bench
+    and the profiler helpers among them."""
+    names = {m.name for m in pkgutil.walk_packages(
+        supervised_gan_tpu_torch.__path__, 'supervised_gan_tpu_torch.')}
+    assert {'supervised_gan_tpu_torch.' + n for n in (
+        'bench', 'train', 'test', 'utils.profile')} <= names

@@ -2,7 +2,8 @@
 on the CPU at a small DSGAN config with checkpoints written by the JAX
 package's save_pth (G1, G2 and the F2 that the sampler loads but does not
 run): the results layout of the JAX test.py, determinism
-under one seed, and the refusals (no silent CPU fallback, unported flags)."""
+under one seed, and the refusals (no silent CPU fallback, unported flags).
+--no_pallas is held in tests/test_torch_no_pallas.py."""
 
 import os
 import subprocess
@@ -98,10 +99,10 @@ def test_gpu_asked_without_cuda_raises(ckpt_dir, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag,value", [
     ('--data_mesh', '2'), ('--spatial_mesh', '2'),
     ('--dcn_coordinator', 'localhost:1234'), ('--dcn_num_processes', '2'),
-    ('--dcn_process_id', '1'), ('--no_pallas', None)])
+    ('--dcn_process_id', '1')])
 def test_unported_flag_raises(tmp_path, flag, value):
     assert flag[2:] in base_options.NOT_YET_PORTED
-    extra = [flag] if value is None else [flag, value]
+    extra = [flag, value]
     with pytest.raises(NotImplementedError, match=flag):
         ttest.main(['--gpu_ids', '-1']
                    + _args(str(tmp_path), str(tmp_path)) + extra)

@@ -4,8 +4,10 @@ single-PNG dataset (label in R and G, image in B), 2 iterations of a narrow
 DSGAN config with pools and dropout on.
 Checked: the loss lines, the numbered / latest checkpoints (the per-net
 .pth files and the port's full state), the web/ page, the lr decay print,
-and that without --gpu_ids -1 and with no CUDA device it raises."""
+that without --gpu_ids -1 and with no CUDA device it raises, and
+--profile_dir's trace of steps 10-20."""
 
+import json
 import os
 import subprocess
 import sys
@@ -16,6 +18,7 @@ import torch
 from PIL import Image
 
 from supervised_gan_tpu_torch import train as ttrain
+from supervised_gan_tpu_torch.ops import kernels as K
 
 from test_torch_train_step import FLAGS
 
@@ -90,12 +93,59 @@ def test_train_without_cuda_raises(dataroot, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("extra,flag", [
     (['--steps_per_dispatch', '2'], '--steps_per_dispatch'),
-    (['--profile_dir', 'p'], '--profile_dir'),
     (['--use_multi_class_GAN'], '--use_multi_class_GAN'),
     (['--GAN_losses_D2', 'real_fake', 'fake_fake'], '--GAN_losses_D2'),
     (['--use_fixed_noise1'], '--use_fixed_noise1'),
-    (['--no_cgan'], '--no_cgan')])
+    (['--no_cgan'], '--no_cgan')], ids=[
+    'extra0---steps_per_dispatch', 'extra2---use_multi_class_GAN',
+    'extra3---GAN_losses_D2', 'extra4---use_fixed_noise1',
+    'extra5---no_cgan'])
 def test_unported_training_flags_raise(dataroot, tmp_path, extra, flag):
     with pytest.raises(NotImplementedError, match=flag):
         ttrain.main(['--gpu_ids', '-1']
                     + _args(dataroot, str(tmp_path / 'ckpt')) + extra)
+
+
+def test_profile_dir_writes_a_trace_of_steps_10_to_20(dataroot, tmp_path,
+                                                      capsys):
+    """20 steps (10 epochs of 2 images) with --profile_dir: one Chrome
+    trace written there, of host activity on the CPU, and the JAX driver's
+    line.  --no_pallas keeps the traced steps to library calls: the plain
+    versions' per-tap ops would make the CPU trace ten times larger."""
+    prof = str(tmp_path / 'prof')
+    args = _args(dataroot, str(tmp_path / 'ckpt'))
+    for flag, value in (('--niter', '10'), ('--niter_decay', '0'),
+                        ('--print_freq', '100'), ('--display_freq', '100'),
+                        ('--save_epoch_freq', '100')):
+        args[args.index(flag) + 1] = value
+    try:
+        r = ttrain.main(['--gpu_ids', '-1', '--no_pallas', '--profile_dir',
+                         prof] + args)
+    finally:
+        K.set_kernels_enabled(True)
+    assert r['steps'] == 20
+    files = os.listdir(prof)
+    assert len(files) == 1 and files[0].endswith('.pt.trace.json')
+    assert r['trace']['path'] == os.path.join(prof, files[0])
+    assert 'profiler trace written to %s' % prof in capsys.readouterr().out
+    with open(r['trace']['path']) as f:
+        events = json.load(f)['traceEvents']
+    assert any(e.get('name') == 'aten::conv2d' for e in events)
+
+
+def test_profile_dir_not_written_short(dataroot, tmp_path, capsys):
+    """A run that ends before step 20 writes no trace."""
+    prof = str(tmp_path / 'prof')
+    args = _args(dataroot, str(tmp_path / 'ckpt'))
+    for flag, value in (('--niter', '6'), ('--niter_decay', '0'),
+                        ('--print_freq', '100'), ('--display_freq', '100'),
+                        ('--save_epoch_freq', '100')):
+        args[args.index(flag) + 1] = value
+    try:
+        r = ttrain.main(['--gpu_ids', '-1', '--no_pallas', '--profile_dir',
+                         prof] + args)
+    finally:
+        K.set_kernels_enabled(True)
+    assert r['steps'] == 12 and r['trace'] is None
+    assert not os.path.exists(prof)
+    assert 'profiler trace not written' in capsys.readouterr().out
