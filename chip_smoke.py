@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DSGAN sampler, DSGAN train step, stage-1 label
+"""Drive the PyTorch port's DSGAN sampler, DSGAN train step (per step and
+chunked, --steps_per_dispatch, as a CUDA graph of the step), stage-1 label
 GAN, the README DSGAN workflow and the bench entry point on one CUDA card,
 on the hand-written kernels and under --no_pallas, and hold every
 hand-written kernel against its plain PyTorch version.
@@ -125,9 +126,25 @@ comparison is float32 against float32.
      with every launch's device record (phase_profile_dir); then the bench
      entry point (supervised_gan_tpu_torch.bench.main) in turns: kernels
      bf16, --no_pallas bf16, --no_pallas f32, kernels f32, each 3 windows
-     of BENCH_WINDOW_STEPS steps and a BENCH_TRACE_STEPS-step trace, its
+     of BENCH_WINDOW_STEPS steps per step and chunked (one chunk of 10) and
+     a BENCH_TRACE_STEPS-step trace (one chunk traced), its
      record printed, finite, its device fields set, its wrappers' launches
      a step those of this phase (all 0 under --no_pallas; phase_bench);
+     Then the chunked dispatch (--steps_per_dispatch, a CUDA graph of the
+     step, models/graph.py): one eager bf16 step of the bench configuration,
+     set_input included, under torch.cuda.set_sync_debug_mode("error")
+     (phase_sync_free); train_chunk of 4 batches against 4 eager steps in
+     f32 and bf16, every parameter, Adam moment and pool image and the last
+     losses, bitwise under deterministic algorithms; and one step under the
+     default algorithms, a replay against eager steps from a state they
+     share bitwise, within twice the spread of three eager runs
+     (phase_chunk_equals_eager); in each bench arm
+     the chunked windows and trace, the graph's kernel nodes equal to the
+     eager step's traced kernels and the chunked step's traced kernels
+     equal to those plus the input copies beside each replay; the train
+     entry point with --steps_per_dispatch 4 over 8 steps with a print at
+     step 6: chunks 4, 2, 2, finite losses, latest_*.pth and
+     latest_state.pt written (phase_chunked_driver);
  11. the stage-1 label GAN (--model fcgan), the command of
      tools/recipe_r05.py:71-84 at its widths and 512 px, on the synthetic
      set: 8 bf16 and 4 f32 steps with exact launch counts and finite
@@ -183,6 +200,7 @@ from supervised_gan_tpu_torch import nn as tnn  # noqa: E402
 from supervised_gan_tpu_torch import test as sampler  # noqa: E402
 from supervised_gan_tpu_torch import train as trainer  # noqa: E402
 from supervised_gan_tpu_torch.models import create_model  # noqa: E402
+from supervised_gan_tpu_torch.models.base import CAPTURE_AFTER  # noqa: E402
 from supervised_gan_tpu_torch.nn import core as nn_core  # noqa: E402
 from supervised_gan_tpu_torch.ops import bilinear_upsample  # noqa: E402
 from supervised_gan_tpu_torch.ops import conv as ops_conv  # noqa: E402
@@ -2236,16 +2254,22 @@ BENCH_WINDOW_STEPS = 10
 BENCH_TRACE_STEPS = 4
 BENCH_DEVICE_FIELDS = ('device_ms_per_step', 'device_kernels_per_step',
                        'busy_share', 'host_gap_ms', 'device_rate_img_s',
-                       'device', 'trace_primer_records_lost')
+                       'device', 'trace_primer_records_lost', 'chunked_img_s',
+                       'chunked_device_ms_per_step',
+                       'chunked_device_kernels_per_step',
+                       'chunked_busy_share', 'graph_kernels',
+                       'chunked_kernels_outside_graph_per_step')
 
 
 def phase_bench():
     """supervised_gan_tpu_torch.bench.main on each arm in turn, its record
-    printed as a line.  Checked: finite losses, value > 0, three windows,
-    every device field set (bench.main fails when a launch lost its device
-    record), the gates, and the wrappers' launches a step: the train
-    phase's on the kernels' route (0 for the region's two), every one 0
-    under --no_pallas."""
+    printed as a line.  Checked: finite losses, value > 0, three windows
+    each way (per step and chunked), every device field set (bench.main
+    fails when a launch lost its device record), the gates, the wrappers'
+    launches a step: the train phase's on the kernels' route (0 for the
+    region's two), every one 0 under --no_pallas; and the chunked step's
+    traced device kernels a step, and its graph's kernel nodes, equal to
+    the eager step's: the graph runs every kernel of the step."""
     out = {}
     for name, flags in BENCH_ARMS:
         kernels = '--no_pallas' not in flags
@@ -2260,13 +2284,23 @@ def phase_bench():
         torch.cuda.empty_cache()
         print('  bench %s: %s' % (name, buf.getvalue().splitlines()[-1]))
         check(rec['finite'] and rec['value'] > 0
-              and len(rec['windows_img_s']) == BENCH_WINDOWS,
+              and len(rec['windows_img_s']) == BENCH_WINDOWS
+              and len(rec['chunked_windows_img_s']) == BENCH_WINDOWS,
               'bench %s: not finite or no rate' % name)
         check(all(rec[k] is not None for k in BENCH_DEVICE_FIELDS),
               'bench %s: a device field is null' % name)
         check(rec['gates']['kernels'] == kernels
               and rec['gates']['tf32'] == {'cudnn': False, 'matmul': False},
               'bench %s: gates %s' % (name, rec['gates']))
+        check(rec['graph_kernels'] == rec['device_kernels_per_step']
+              and rec['chunked_device_kernels_per_step']
+              == rec['graph_kernels']
+              + rec['chunked_kernels_outside_graph_per_step'],
+              'bench %s: the chunked step ran %s device kernels a step (%s '
+              'beside its replay), its graph holds %s, the eager step ran %s'
+              % (name, rec['chunked_device_kernels_per_step'],
+                 rec['chunked_kernels_outside_graph_per_step'],
+                 rec['graph_kernels'], rec['device_kernels_per_step']))
         want = {k: float(v) for k, v in expected(
             LAUNCHES_PER_STEP if kernels else {}, 1).items()}
         check(rec['launches_per_step'] == want, 'bench %s: launches a step '
@@ -2318,6 +2352,306 @@ def phase_profile_dir():
           % (kernels, t['kernels'], floor))
     del events
     return dict(t, file_kernels=kernels, steps=r['steps'])
+
+
+# ------------------------------------------ the chunked (graphed) step -- #
+
+def phase_sync_free(dtype='bfloat16'):
+    """One eager step of the bench configuration after two warm-up steps,
+    its set_input included, under torch.cuda.set_sync_debug_mode('error'):
+    any synchronizing call (a pageable host copy, .item(), a host branch on
+    a device value) raises.  What a captured step needs of the eager one."""
+    model = create_model(train_opt(['--compute_dtype', dtype, '--name',
+                                    TRAIN_NAME + '_sync_free']))
+    for seed in range(2):
+        model.set_input(fixed_batch(seed=seed))
+        model.optimize_parameters()
+    torch.cuda.synchronize()
+    batch = fixed_batch(seed=2)
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        model.set_input(batch)
+        model.optimize_parameters()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    errors = model.get_current_errors()
+    check(all(np.isfinite(v) for v in errors.values()),
+          'sync-free step: non-finite losses %s' % errors)
+    print('  %s step 3 (set_input + optimize_parameters) made no '
+          'synchronizing call; losses %s' % (dtype, dict(errors)))
+    del model
+    torch.cuda.empty_cache()
+    return dict(dtype=dtype, losses=dict(errors))
+
+
+CHUNK_STEPS = 4
+EAGER_RUNS = 3
+# the losses the DSGAN step computes from the discriminators it has just
+# updated (models/twostage_cycle.py: update_G after update_D1, update_D2)
+LOSSES_AFTER_D_UPDATE = ('G1_GAN', 'G2_GAN')
+# eager runs on an H100 were seen to differ there by 0, 1 or 2 units in the
+# last place of the float32 loss: the least spread those terms are given
+ULPS_AFTER_D_UPDATE = 2
+
+
+def _model_state(model):
+    """{name: tensor} of what a step moves, copied: parameters and buffers,
+    Adam's moments and steps, the pools' images; and the last step's
+    losses."""
+    out = {}
+
+    def keep(name, v):
+        out[name] = v.detach().to(torch.float32, copy=True)
+    for label, net in model.nets().items():
+        for k, v in net.state_dict().items():
+            keep('%s.%s' % (label, k), v)
+    for label, opt in model.optimizers().items():
+        for i, st in enumerate(opt.state.values()):
+            for k, v in st.items():
+                keep('adam.%s.%d.%s' % (label, i, k), v)
+    for label, p in model.pools.items():
+        if p is not None:
+            keep('pool.%s' % label, p['images'])
+    return out, dict(model.get_current_errors())
+
+
+def _state_diff(a, b):
+    """Two _model_state results apart: the largest relative L2 difference of
+    a tensor and its name, the tensors that differ at all, the relative L2
+    difference of the whole state, and each loss's absolute difference."""
+    (ta, la), (tb, lb) = a, b
+    check(ta.keys() == tb.keys(), 'chunked state: keys differ')
+    worst, name, differ, num, den = 0.0, None, 0, 0.0, 0.0
+    for k in ta:
+        x, y = ta[k].double(), tb[k].double()
+        d, n = float((x - y).norm()), float(x.norm())
+        num, den = num + d * d, den + n * n
+        if d:
+            differ += 1
+            rel = d / max(n, 1e-30)
+            if rel > worst:
+                worst, name = rel, k
+    return dict(worst=worst, name=name, differ=differ,
+                whole=(num / max(den, 1e-300)) ** 0.5,
+                losses={k: abs(la[k] - lb[k]) for k in la})
+
+
+def _train_model(dtype, label):
+    return create_model(train_opt([
+        '--compute_dtype', dtype, '--name',
+        '%s_chunk_%s' % (TRAIN_NAME, label)]))
+
+
+def _eager_steps(model, batches):
+    for b in batches:
+        model.set_input(b)
+        model.optimize_parameters()
+
+
+def _chunk_runs_deterministic(dtype):
+    """Under torch.use_deterministic_algorithms (warn only), the states
+    after CHUNK_STEPS steps of three models from one seed and one state (the
+    bench configuration, pools and dropout on): A and A2 by eager steps on
+    the same batches, B by one train_chunk of them (two eager steps, then
+    its capture and two replays)."""
+    batches = [fixed_batch(seed=10 + i) for i in range(CHUNK_STEPS)]
+    states = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for label in ('A', 'A2', 'B'):
+            model = _train_model(dtype, label)
+            if label == 'B':
+                model.train_chunk(batches)
+                check(model.graph_kernels() is not None
+                      and model.steps_run == CHUNK_STEPS,
+                      'train_chunk did not capture its step')
+                graph_kernels = model.graph_kernels()
+            else:
+                _eager_steps(model, batches)
+            torch.cuda.synchronize()
+            states[label] = _model_state(model)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    spread = _state_diff(states['A'], states['A2'])
+    chunked = _state_diff(states['A'], states['B'])
+    print('  %s, %d steps, deterministic: eager vs eager: %d of %d tensors '
+          'differ, losses %s; chunked vs eager: %d differ (worst %s), losses '
+          '%s; the graph holds %d kernels'
+          % (dtype, CHUNK_STEPS, spread['differ'], len(states['A'][0]),
+             spread['losses'], chunked['differ'], chunked['name'],
+             chunked['losses'], graph_kernels))
+    return dict(eager_spread=spread, chunked=chunked,
+                graph_kernels=graph_kernels, tensors=len(states['A'][0]))
+
+
+def _chunk_runs_default(dtype):
+    """One step under the default algorithms from one state: EAGER_RUNS
+    eager models A0.. and a chunked model B each take CAPTURE_AFTER eager
+    steps under deterministic algorithms (their states and losses then
+    bitwise equal, checked), then one more step on the same batch, an eager
+    one in A0.., in B the first replay of the step it captures there (its
+    train_chunk of that batch).  The states and losses after it, each A
+    against each other A (the eager spread) and B against each A."""
+    batches = [fixed_batch(seed=10 + i) for i in range(CAPTURE_AFTER + 1)]
+    eager = ['A%d' % i for i in range(EAGER_RUNS)]
+    prefix, finals = None, {}
+    for label in eager + ['B']:
+        model = _train_model(dtype, label)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            if label == 'B':
+                model.train_chunk(batches[:CAPTURE_AFTER])
+            else:
+                _eager_steps(model, batches[:CAPTURE_AFTER])
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        state = _model_state(model)
+        if prefix is None:
+            prefix = state
+        else:
+            d = _state_diff(prefix, state)
+            check(d['differ'] == 0 and not any(d['losses'].values()),
+                  '%s %s: after %d deterministic steps %d tensors differ '
+                  'from A0 (worst %s), losses %s' % (
+                      dtype, label, CAPTURE_AFTER, d['differ'], d['name'],
+                      d['losses']))
+        del state
+        if label == 'B':
+            model.train_chunk(batches[CAPTURE_AFTER:])
+            check(model.graph_kernels() is not None
+                  and model.steps_run == CAPTURE_AFTER + 1,
+                  'train_chunk did not capture its step')
+            graph_kernels = model.graph_kernels()
+        else:
+            _eager_steps(model, batches[CAPTURE_AFTER:])
+        torch.cuda.synchronize()
+        finals[label] = _model_state(model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    pairs = {'%s-%s' % (a, b): _state_diff(finals[a], finals[b])
+             for i, a in enumerate(eager) for b in eager[i + 1:]}
+    chunked = {'B-%s' % a: _state_diff(finals[a], finals['B'])
+               for a in eager}
+    return dict(eager_spread=pairs, chunked=chunked, losses=finals['A0'][1],
+                graph_kernels=graph_kernels, tensors=len(finals['A0'][0]))
+
+
+def phase_chunk_equals_eager(dtype):
+    """Chunked (replays of the captured step) against eager steps: every
+    parameter and buffer, Adam moment and step, the pools' images and the
+    last losses.
+
+    Under deterministic algorithms (_chunk_runs_deterministic, CHUNK_STEPS
+    steps, two of them replays) the eager runs are bitwise equal, and the
+    chunked run must be too: the exact check of the noise draws' offsets,
+    Adam's path, the pool rows, the inputs and the outputs' binding.
+
+    With the default algorithms (the graph a run captures) cuDNN's weight
+    gradients and index_select's backward sum in another order on each
+    run, so eager runs differ; over several GAN steps the difference grows
+    and the distance of two runs is a draw that one pair cannot bound.  So
+    _chunk_runs_default takes one default step from a state the runs share
+    bitwise, and holds B against each eager run within twice the largest
+    of the eager pairs: the whole state's relative L2 difference, the
+    largest of one tensor, and each loss.  A loss the eager runs agree on
+    (those of the step's starting state) must agree bitwise; the G terms
+    read the discriminators this step updated, where a rounding flip of
+    their float32 value is part of the eager spread, so their spread is at
+    least ULPS_AFTER_D_UPDATE units in its last place."""
+    det = _chunk_runs_deterministic(dtype)
+    spread, chunked = det['eager_spread'], det['chunked']
+    check(spread['differ'] == 0 and not any(spread['losses'].values()),
+          'deterministic eager %s runs differ (%s)' % (dtype, spread['name']))
+    check(chunked['differ'] == 0 and not any(chunked['losses'].values()),
+          'chunked %s differs from eager under deterministic algorithms (%d '
+          'tensors, worst %s, losses %s)' % (dtype, chunked['differ'],
+                                             chunked['name'],
+                                             chunked['losses']))
+    default = _chunk_runs_default(dtype)
+    pairs, chunked = default['eager_spread'], default['chunked']
+    limits = {m: 2 * max(p[m] for p in pairs.values())
+              for m in ('whole', 'worst')}
+    for k, v in default['losses'].items():
+        s = max(p['losses'][k] for p in pairs.values())
+        if k in LOSSES_AFTER_D_UPDATE:
+            s = max(s, ULPS_AFTER_D_UPDATE
+                    * float(np.spacing(np.float32(abs(v)))))
+        limits[k] = 2 * s
+    print('  %s, one step from a shared state, default algorithms: eager vs '
+          'eager %s; chunked vs eager %s; limits %s; the graph holds %d '
+          'kernels' % (
+              dtype,
+              {n: ('%.4g' % p['whole'], '%.4g' % p['worst'], p['differ'],
+                   p['losses']) for n, p in pairs.items()},
+              {n: ('%.4g' % c['whole'], '%.4g' % c['worst'], c['differ'],
+                   c['losses']) for n, c in chunked.items()},
+              {m: '%.4g' % v for m, v in limits.items()},
+              default['graph_kernels']))
+    for n, c in chunked.items():
+        over = [m for m in ('whole', 'worst') if c[m] > limits[m]]
+        over += [k for k, v in c['losses'].items() if v > limits[k]]
+        check(not over, 'chunked %s, %s: %s beyond twice the eager spread '
+              '(%s)' % (dtype, n, over,
+                        {m: (c[m] if m in c else c['losses'][m], limits[m])
+                         for m in over}))
+    return dict(dtype=dtype, steps=CHUNK_STEPS, deterministic=det,
+                default=default, limits=limits)
+
+
+DRIVER_CHUNK, DRIVER_PRINT = 4, 6
+
+
+def phase_chunked_driver():
+    """The train entry point with --steps_per_dispatch 4 on the bench
+    configuration, bf16, one epoch of the 8 synthetic images with a print at
+    step 6: chunks of 4 (two eager steps, the capture, two replays), 2 (the
+    print's flush) and 2 (the epoch's last batch), each printed; finite
+    losses at step 6; latest_net_*.pth and latest_state.pt written."""
+    name = TRAIN_NAME + '_chunked'
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        r = trainer.main(TRAIN_FLAGS + ON_CARD + [
+            '--compute_dtype', 'bfloat16', '--name', name, '--niter', '1',
+            '--niter_decay', '0', '--max_dataset_size', str(TRAIN_IMAGES),
+            '--print_freq', str(DRIVER_PRINT), '--display_freq', '100',
+            '--save_epoch_freq', '1',
+            '--steps_per_dispatch', str(DRIVER_CHUNK)])
+    counts = K.launch_counts()
+    out = buf.getvalue()
+    chunk_lines = [l for l in out.splitlines()
+                   if l.startswith('dispatched a chunk')]
+    want = [DRIVER_CHUNK, DRIVER_PRINT - DRIVER_CHUNK,
+            TRAIN_IMAGES - DRIVER_PRINT]
+    check(r['steps'] == TRAIN_IMAGES and r['chunks'] == want
+          and len(chunk_lines) == len(want),
+          'chunked driver: %d steps in chunks %s (%d lines), expected %s'
+          % (r['steps'], r['chunks'], len(chunk_lines), want))
+    losses = [l for l in out.splitlines() if l.startswith('(epoch')]
+    vals = [float(v) for v in re.findall(r': (-?[\d.]+|nan|inf)',
+                                         losses[0].split(')', 1)[1])]
+    check(len(losses) == 1 and all(np.isfinite(vals)),
+          'chunked driver: loss lines %s' % losses)
+    run_dir = os.path.join(CKPT_DIR, name)
+    files = set(os.listdir(run_dir))
+    nets = ('G1', 'G2', 'F2', 'D1_0', 'D1_1', 'D2_0', 'D2_1', 'D2_2', 'D2_3')
+    missing = ({'latest_net_%s.pth' % n for n in nets} | {'latest_state.pt'}
+               ) - files
+    check(not missing, 'chunked driver: missing %s' % sorted(missing))
+    print('  chunks %s (%s); step 6 losses %s; wall a dispatch %s ms; '
+          'wrapper launches %s (the eager steps and the capture: replays '
+          'run no wrapper)' % (r['chunks'], '; '.join(chunk_lines),
+                               losses[0], ['%.1f' % (1e3 * t)
+                                           for t in r['step_seconds']],
+                               counts))
+    return dict(chunks=r['chunks'], step_seconds=r['step_seconds'],
+                launches=counts, losses=losses[0])
 
 
 def main():
@@ -2521,6 +2855,17 @@ def main():
     print('== the bench entry point: kernels and --no_pallas, bf16 and f32, '
           'in turns')
     bench_arms = phase_bench()
+    print('== the step without a synchronize: one eager bf16 step under '
+          'set_sync_debug_mode("error")')
+    sync_free = phase_sync_free()
+    print('== chunked == eager: %d steps, train_chunk (a captured step '
+          'replayed) against eager steps, f32 and bf16, deterministic; one '
+          'step with the default algorithms' % CHUNK_STEPS)
+    chunk_eq = {dt: phase_chunk_equals_eager(dt)
+                for dt in ('float32', 'bfloat16')}
+    print('== the train entry point with --steps_per_dispatch %d'
+          % DRIVER_CHUNK)
+    chunked_driver = phase_chunked_driver()
 
     print('== stage 1: the label GAN (--model fcgan), recipe command, 512 px')
     stage1_16 = stage1_train('bfloat16', TRAIN_IMAGES)
@@ -2588,6 +2933,8 @@ def main():
                                gated_sample_seconds=r_gated['sample_seconds'],
                                gated_launches=counts_gated),
                   bench=bench_arms, profile_dir=profile_dir,
+                  chunked=dict(sync_free=sync_free, equals_eager=chunk_eq,
+                               driver=chunked_driver),
                   no_pallas=dict(sampler_launches=counts_np,
                                  sampler_loop_seconds=r_np['loop_seconds'],
                                  reference_step=ref_step_np),

@@ -29,12 +29,26 @@ Timing, as bench.py:132-188 there:
     trace.
 The wrappers' ``launches_per_step`` are counted over the windows.
 
+Then the chunked dispatch (--steps_per_dispatch, bench.py:146-163 there):
+the batch stacked CHUNK times, ``train_chunk_stacked`` once (on a card the
+step's capture as a CUDA graph, models/graph.py), then N_WINDOWS windows of
+WINDOW_STEPS steps in chunks of CHUNK, each ended by one synchronize:
+``chunked_img_s`` (median) and ``chunked_windows_img_s``.  On a card a
+trace of TRACE_STEPS // CHUNK chunks (at least one) gives the chunked
+step's device time, kernels and busy share (``chunked_*``), the graph's
+kernel nodes (``graph_kernels``; each replay counted as a launch of each)
+and the kernels launched beside the replays (the copies of the inputs into
+the graph's, ``chunked_kernels_outside_graph_per_step``).
+``value`` is the better of the per-step and the chunked rate, and
+``dispatch_mode`` says which ('per_step' or 'chunked[k=CHUNK]'), as the JAX
+bench chooses; every other field without ``chunked`` is the per-step
+mode's.  On the CPU the chunked steps run eagerly.
+
 Left out of the JAX record, since none of them measures this port on this
 card: ``vs_baseline``, ``vs_a100_estimate`` and ``baseline_note`` (an A100
 estimate from XLA's FLOP count, BENCH_FLOPS.json), ``vs_torch_cpu_measured``
 (a CPU anchor, BASELINE_TORCH.json), the XLA compile-cache fields and the
-TPU gate names.  The chunked dispatch (--steps_per_dispatch, a CUDA graph
-of k steps here) is not yet ported: ``chunked_img_s`` is null.
+TPU gate names.
 
 It runs on ``cuda:<first --gpu_ids>`` and never falls back to the CPU;
 under ``--gpu_ids -1`` (``backend`` "cpu") every device field is null.  The
@@ -57,7 +71,7 @@ from .nn import core as nn_core
 from .ops.kernels import (build, kernels_enabled, launch_counts,
                           reset_launch_counts)
 from .options import TrainOptions
-from .utils.profile import device_rows, is_copy, traced
+from .utils.profile import device_rows, is_copy, kernel_launches, traced
 
 # bench.py:35-64 of the JAX package, with the paths of this checkout: the
 # dataroot is never read, and the options write opt.txt under
@@ -91,6 +105,7 @@ WARMUP_STEPS = 5
 WINDOW_STEPS = 30
 N_WINDOWS = 3
 TRACE_STEPS = 12
+CHUNK = 10
 
 
 def card(index):
@@ -105,9 +120,13 @@ def card(index):
 
 
 def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
-         trace_steps=TRACE_STEPS):
+         trace_steps=TRACE_STEPS, chunk=CHUNK):
     """Run the benchmark; returns the record it prints.  ``args``: the
-    flags after DSGAN_ARGS (default: the command line's)."""
+    flags after DSGAN_ARGS (default: the command line's); window_steps must
+    be a multiple of chunk."""
+    if window_steps % chunk:
+        raise ValueError('bench: %d window steps are not chunks of %d'
+                         % (window_steps, chunk))
     disable_tf32()
     t_setup0 = time.perf_counter()
     opt = TrainOptions().parse(
@@ -161,19 +180,55 @@ def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
         device_ms = sum(r[1] for r in rows)
         kernels_per_step = sum(r[2] for r in rows if not is_copy(r[0]))
 
+    stacked = {name: torch.stack([t] * chunk)
+               for name, t in model.step_inputs().items()}
+    model.train_chunk_stacked(stacked, chunk)       # on a card, the capture
+    sync()
+    chunked_windows = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(window_steps // chunk):
+            model.train_chunk_stacked(stacked, chunk)
+        sync()
+        chunked_windows.append(window_steps * opt.batchSize
+                               / (time.perf_counter() - t0))
+    chunked_img_s = statistics.median(chunked_windows)
+    chunked_wall_ms = 1e3 * opt.batchSize / chunked_img_s
+    chunked_ms = chunked_kernels = outside = None
+    if cuda:
+        chunks = max(1, trace_steps // chunk)
+        prof, _ = traced(lambda: model.train_chunk_stacked(stacked, chunk),
+                         chunks, dev, host=False,
+                         graph_kernels=model.graph_kernels())
+        rows = device_rows(prof, chunks * chunk)
+        chunked_ms = sum(r[1] for r in rows)
+        chunked_kernels = sum(r[2] for r in rows if not is_copy(r[0]))
+        outside = kernel_launches(prof)[0] / (chunks * chunk)
+    if chunked_img_s > img_s:
+        value, mode = chunked_img_s, 'chunked[k=%d]' % chunk
+    else:
+        value, mode = img_s, 'per_step'
+
     errors = model.get_current_errors()
     rec = {
         'metric': 'vnc%d_dsgan_twostage_cycle_train_images_per_sec_per_chip'
                   % opt.fineSize,
-        'value': img_s,
+        'value': value,
         'unit': 'images/sec',
-        'dispatch_mode': 'per_step',
+        'dispatch_mode': mode,
         'per_step_img_s': img_s,
         'windows_img_s': windows_img_s,
         'window_steps': window_steps,
-        'chunked_img_s': None,
-        'chunked_windows_img_s': [],
-        'chunked_note': '--steps_per_dispatch is not yet ported',
+        'chunk_steps': chunk,
+        'chunked_img_s': chunked_img_s,
+        'chunked_windows_img_s': chunked_windows,
+        'chunked_wall_ms_per_step': chunked_wall_ms,
+        'chunked_device_ms_per_step': chunked_ms,
+        'chunked_device_kernels_per_step': chunked_kernels,
+        'chunked_busy_share': (chunked_ms / chunked_wall_ms
+                               if cuda else None),
+        'graph_kernels': model.graph_kernels(),
+        'chunked_kernels_outside_graph_per_step': outside,
         'finite': bool(np.all(np.isfinite(list(errors.values())))),
         'wall_ms_per_step': wall_ms,
         'enqueue_ms_per_step': enqueue_ms,

@@ -23,9 +23,15 @@ import os
 
 import torch
 
+from .graph import StepGraph
+from .pools import decide, draw_decisions, pool_apply
 from .. import nn
 from ..ops.kernels import set_kernels_enabled
 from ..utils import pth as pthio
+
+# eager steps a model runs before a chunk captures its step: the first fills
+# the kernels' libraries, the resampling constants and Adam's state
+CAPTURE_AFTER = 2
 
 
 def parse_which_channel(spec):
@@ -56,15 +62,41 @@ def disable_tf32():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def adam(groups, beta1):
+def adam(groups, beta1, device):
     """optax.scale_by_adam(b1=beta1, b2=0.999, eps=1e-8) with the learning
     rate applied per parameter group (models/base.py:179-218 there):
-    torch's Adam computes the same function.  ``groups``: [(params, lr)]."""
-    return torch.optim.Adam([{'params': list(p), 'lr': lr} for p, lr in groups],
-                            betas=(beta1, 0.999), eps=1e-8)
+    torch's Adam computes the same function.  ``groups``: [(params, lr)].
+
+    On a CUDA device it is capturable, with each group's rate a device
+    tensor (``set_lr`` writes it in place), so a captured step holds it and
+    a decayed rate needs no new capture; eager steps there run the same
+    Adam."""
+    cuda = device.type == 'cuda'
+    opt = torch.optim.Adam(
+        [{'params': list(p),
+          'lr': torch.full((), lr, device=device) if cuda else lr}
+         for p, lr in groups],
+        betas=(beta1, 0.999), eps=1e-8, capturable=cuda)
+    # eager steps run it uncaptured on purpose: no warning about that
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
+
+
+def set_lr(group, lr):
+    """Write ``lr`` into an optimizer group: in place into its device tensor
+    (which a captured step reads), else as a float."""
+    if isinstance(group['lr'], torch.Tensor):
+        group['lr'].fill_(lr)
+    else:
+        group['lr'] = lr
 
 
 class BaseModel:
+    # the attributes set_input sets and train_step reads, and those that
+    # train_step sets and the driver reads (metrics, taps)
+    STEP_INPUTS = ()
+    STEP_OUTPUTS = ()
+
     def name(self):
         return type(self).__name__
 
@@ -83,12 +115,127 @@ class BaseModel:
         self.compute_dtype = (torch.bfloat16
                               if opt.compute_dtype == 'bfloat16'
                               else torch.float32)
+        self.pools = {}
+        self.steps_run = 0
+        self._rows = None          # this step's pool rows, on the device
+        self._graph = None         # the captured step (models/graph.py)
 
     def noise(self, shape):
         """N(0, 1) float32 noise on the device from the seeded generator."""
         return torch.randn(shape, generator=self.noise_generator,
                            device=self.device)
 
+    # ----------------------------------------------------------- inputs -- #
+    def host_inputs(self, input):
+        """{STEP_INPUTS name: host tensor} of one loader batch; recipes
+        define it (and set image_paths)."""
+        raise NotImplementedError
+
+    def to_device(self, t):
+        """A host tensor on the model's device; on a card through pinned
+        memory, without synchronizing the host."""
+        if self.device.type == 'cuda':
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def set_input(self, input):
+        for name, t in self.host_inputs(input).items():
+            setattr(self, name, self.to_device(t))
+
+    def step_inputs(self):
+        return {name: getattr(self, name) for name in self.STEP_INPUTS}
+
+    # ------------------------------------------------------------ pools -- #
+    def pool_queries(self):
+        """The pools a train step queries, in order, each with a batch of
+        --batchSize images; recipes with pools define it."""
+        return []
+
+    def stage_rows(self, k):
+        """The pool rows (models/pools.py decide) of the next k steps, drawn
+        on the host in the order k eager steps draw them, as one (k, Q, 3)
+        tensor on the device (one copy); None when no pool is queried."""
+        rows = []
+        for _ in range(k):
+            for name in self.pool_queries():
+                pool = self.pools[name]
+                if pool is not None:
+                    rows += decide(pool, draw_decisions(
+                        pool, self.opt.batchSize, self.pool_generator))
+        if not rows:
+            return None
+        return self.to_device(torch.tensor(rows, dtype=torch.int64)).view(
+            k, -1, 3)
+
+    def query_pool(self, name, batch):
+        """The pooled batch of pool ``name``: the next rows of this step."""
+        pool = self.pools[name]
+        if pool is None:
+            return batch
+        n = batch.shape[0]
+        if self._rows is None or self._rows.shape[0] < n:
+            raise RuntimeError('%s: no pool rows staged for this query; run '
+                               'steps through optimize_parameters or '
+                               'train_chunk' % name)
+        rows, self._rows = self._rows[:n], self._rows[n:]
+        return pool_apply(pool, batch, rows)
+
+    # --------------------------------------------------------- training -- #
+    def train_step(self):
+        """One iteration on the step inputs and the staged pool rows; recipes
+        define it.  It must not synchronize the host with the device: no
+        host copy, no .item(), no branch on a device value (a captured CUDA
+        graph holds it)."""
+        raise NotImplementedError
+
+    def optimize_parameters(self):
+        """One training iteration on the current input."""
+        rows = self.stage_rows(1)
+        self._rows = None if rows is None else rows[0]
+        self.train_step()
+        self.steps_run += 1
+
+    def train_chunk(self, batches):
+        """len(batches) iterations: the same as set_input(b);
+        optimize_parameters() for each b in turn (the same draws, the same
+        final state; metrics and taps are the last step's), with the
+        batches staged on the device in one copy (JAX models/base.py:298
+        there)."""
+        hosts = [self.host_inputs(b) for b in batches]
+        self.train_chunk_stacked(
+            {name: self.to_device(torch.stack([h[name] for h in hosts]))
+             for name in hosts[0]}, len(batches))
+
+    def train_chunk_stacked(self, stacked, k):
+        """k iterations whose inputs lie on the device stacked on the leading
+        axis ({STEP_INPUTS name: (k, ...) tensor}).  On a card, once the model
+        has run CAPTURE_AFTER eager steps, each is a replay of the captured
+        step (models/graph.py; one graph of one step, whatever k), with no
+        synchronize; before that, and on the CPU, an eager step.  A capture
+        or replay that fails raises."""
+        rows = self.stage_rows(k)
+        cuda = self.device.type == 'cuda'
+        for i in range(k):
+            inputs = {name: t[i] for name, t in stacked.items()}
+            step_rows = None if rows is None else rows[i]
+            if cuda and (self._graph is not None
+                         or self.steps_run >= CAPTURE_AFTER):
+                if self._graph is None:
+                    self._graph = StepGraph(self, inputs, step_rows)
+                self._graph.replay(self, inputs, step_rows)
+            else:
+                for name, t in inputs.items():
+                    setattr(self, name, t)
+                self._rows = step_rows
+                self.train_step()
+            self.steps_run += 1
+
+    def graph_kernels(self):
+        """Kernel nodes in the captured step (None before a capture): what
+        a trace of its replays records a replay."""
+        return None if self._graph is None else self._graph.kernels
+
+    # ------------------------------------------------------ checkpoints -- #
     def _net_path(self, network_label, epoch_label, model_dir=''):
         d = model_dir or self.save_dir
         return os.path.join(d, '%s_net_%s.pth' % (epoch_label, network_label))
@@ -163,7 +310,7 @@ class BaseModel:
             'params': {k: {n: v.detach().cpu() for n, v in
                            net.state_dict().items()}
                        for k, net in nets.items()},
-            'optim': {k: o.state_dict() for k, o in optimizers.items()},
+            'optim': {k: _optim_state(o) for k, o in optimizers.items()},
             'pools': {k: None if p is None else
                       {'images': p['images'].cpu(), 'num': p['num']}
                       for k, p in pools.items()},
@@ -183,7 +330,8 @@ class BaseModel:
         for k, net in nets.items():
             net.load_state_dict(payload['params'][k], strict=True)
         for k, o in optimizers.items():
-            o.load_state_dict(payload['optim'][k])
+            _load_optim_state(o, payload['optim'][k])
+        self._graph = None             # it held the replaced Adam state
         for k, p in pools.items():
             saved = payload['pools'][k]
             if p is not None:
@@ -192,3 +340,29 @@ class BaseModel:
         self.noise_generator.set_state(payload['generators']['noise'])
         self.pool_generator.set_state(payload['generators']['pool'])
         return payload['extra']
+
+
+def _optim_state(o):
+    """An optimizer's state_dict with each group's rate as a float."""
+    sd = o.state_dict()
+    for g in sd['param_groups']:
+        g['lr'] = float(g['lr'])
+    return sd
+
+
+def _load_optim_state(o, sd):
+    """load_state_dict that keeps this optimizer's own group settings
+    (capturable or not, the rate's device tensor) and takes the saved rate
+    into them; a capturable Adam's steps go to the parameters' device."""
+    own = [{k: v for k, v in g.items() if k != 'params'}
+           for g in o.param_groups]
+    o.load_state_dict(sd)
+    for g, mine in zip(o.param_groups, own):
+        lr = float(g['lr'])
+        g.update(mine)
+        set_lr(g, lr)
+        if g['capturable']:
+            for p in g['params']:
+                st = o.state.get(p)
+                if st and 'step' in st:
+                    st['step'] = st['step'].to(p.device, torch.float32)

@@ -26,8 +26,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from .base import BaseModel, adam, parse_which_channel
-from .pools import init_pool, pool_query
+from .base import BaseModel, adam, parse_which_channel, set_lr
+from .pools import init_pool
 from .. import nn
 from ..nn.losses import gan_loss
 from ..utils.images import tensor2im
@@ -36,6 +36,9 @@ METRICS_ORDER = ('G_GAN', 'D_real', 'D_fake')
 
 
 class FCGANModel(BaseModel):
+    STEP_INPUTS = ('input',)
+    STEP_OUTPUTS = ('_metrics', 'fake', 'real')
+
     def initialize(self, opt):
         BaseModel.initialize(self, opt)
         groups = parse_which_channel(opt.which_channel)
@@ -59,8 +62,10 @@ class FCGANModel(BaseModel):
 
         if self.isTrain:
             self.old_lr = opt.lr
-            self.optG = adam([(self.netG.parameters(), opt.lr)], opt.beta1)
-            self.optD = adam([(self.netD.parameters(), opt.lr)], opt.beta1)
+            self.optG = adam([(self.netG.parameters(), opt.lr)], opt.beta1,
+                             self.device)
+            self.optD = adam([(self.netD.parameters(), opt.lr)], opt.beta1,
+                             self.device)
             self.pools = {'pool': init_pool(
                 opt.pool_size, (opt.input_nc, opt.fineSize, opt.fineSize),
                 self.device)}
@@ -94,12 +99,15 @@ class FCGANModel(BaseModel):
     def draw_noise(self):
         return self.noise(self._noise_shape())
 
-    def set_input(self, input):
+    def host_inputs(self, input):
         AorB = self.opt.which_direction == 'A'
         data = input['A' if AorB else 'B'][..., self.chnl_idx]
         t = torch.from_numpy(np.ascontiguousarray(data, np.float32))
-        self.input = t.permute(0, 3, 1, 2).contiguous().to(self.device)
         self.image_paths = input['A_paths' if AorB else 'B_paths']
+        return {'input': t.permute(0, 3, 1, 2).contiguous()}
+
+    def pool_queries(self):
+        return ['pool'] * self.opt.n_update_D
 
     # ---------------------------------------------------------- training -- #
     def _generate(self, noise):
@@ -114,8 +122,7 @@ class FCGANModel(BaseModel):
         """One D update on the pooled fake and the real batch; returns the
         (real, fake) loss sums."""
         lsgan = not self.opt.no_lsgan
-        pooled = pool_query(self.pools['pool'], fake.detach(),
-                            self.pool_generator)
+        pooled = self.query_pool('pool', fake.detach())
         loss_fake = sum(gan_loss(o, False, lsgan)
                         for o in self.bank_apply(self.netD, pooled))
         loss_real = sum(gan_loss(o, True, lsgan)
@@ -143,7 +150,7 @@ class FCGANModel(BaseModel):
                 p.requires_grad_(True)
         return loss.detach()
 
-    def optimize_parameters(self):
+    def train_step(self):
         o = self.opt
         fake = self._generate(self.draw_noise())
         for _ in range(o.n_update_D):
@@ -171,7 +178,7 @@ class FCGANModel(BaseModel):
 
     def _apply_lr(self):
         for opt_ in (self.optG, self.optD):
-            opt_.param_groups[0]['lr'] = self.old_lr
+            set_lr(opt_.param_groups[0], self.old_lr)
 
     def update_learning_rate(self):
         """Linear decay by lr / niter_decay per epoch, not clamped at 0

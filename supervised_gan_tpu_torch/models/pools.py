@@ -9,10 +9,19 @@ count.
 
 Each image draws its two decisions (a uniform and a slot) whether or not
 the pool is full, from a CPU ``torch.Generator``; a caller may feed the
-decisions in instead (``draws``).  Stored images are detached copies.
+draws in instead (``draws``).  The fill count lives on the host, so the
+draws turn into one row per image on the host (``decide``: the slot to
+read and write, whether to store the image, whether to return the evicted
+one), and the device applies the rows without a branch (``pool_apply``, as
+the JAX package's pool_query does): one indexed read, one indexed write (a
+self-write when the image is passed through), one select.  A captured CUDA
+graph of a train step holds that form, with the rows fed in as data.
+Stored images are detached copies.
 """
 
 import torch
+
+REJECT = 0.5
 
 
 def init_pool(pool_size, image_shape, device, dtype=torch.float32):
@@ -32,26 +41,46 @@ def draw_decisions(pool, n, generator):
             for _ in range(n)]
 
 
-def pool_query(pool, batch, generator=None, reject=0.5, draws=None):
+def decide(pool, draws, reject=REJECT):
+    """The rows (slot, store, evicted) of one query, one per image, from its
+    draws; advances ``pool['num']`` as the query will fill the pool."""
+    size = pool['images'].shape[0]
+    rows = []
+    for u, slot in draws:
+        if pool['num'] < size:
+            rows.append((pool['num'], 1, 0))
+            pool['num'] += 1
+        elif u > reject:
+            rows.append((slot, 1, 1))
+        else:
+            rows.append((slot, 0, 0))
+    return rows
+
+
+def pool_apply(pool, batch, rows):
+    """batch (B, C, H, W) -> the pooled batch; ``rows`` (B, 3) int64 on the
+    pool's device, from ``decide``.  Updates ``pool['images']`` in place, an
+    image at a time, so two images of one batch on one slot see each
+    other."""
+    images = pool['images']
+    outs = []
+    for i, x in enumerate(batch.detach().to(images.dtype)):
+        slot = rows[i, :1]
+        old = images.index_select(0, slot)[0]
+        images.index_copy_(0, slot, torch.where(rows[i, 1] > 0, x, old)[None])
+        outs.append(torch.where(rows[i, 2] > 0, old, x))
+    return torch.stack(outs)
+
+
+def pool_query(pool, batch, generator=None, reject=REJECT, draws=None):
     """batch (B, C, H, W) -> the pooled batch; updates ``pool`` in place."""
     if pool is None:
         return batch
-    images = pool['images']
-    size = images.shape[0]
     if draws is None:
         draws = draw_decisions(pool, batch.shape[0], generator)
-    outs = []
-    for x, (u, slot) in zip(batch.detach().to(images.dtype), draws):
-        if pool['num'] < size:
-            images[pool['num']] = x
-            pool['num'] += 1
-            outs.append(x)
-        elif u > reject:
-            outs.append(images[slot].clone())
-            images[slot] = x
-        else:
-            outs.append(x)
-    return torch.stack(outs)
+    rows = torch.tensor(decide(pool, draws, reject), dtype=torch.int64,
+                        device=pool['images'].device)
+    return pool_apply(pool, batch, rows)
 
 
 def pool_sample(pool, batch_size, generator):

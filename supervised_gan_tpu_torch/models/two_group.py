@@ -42,13 +42,15 @@ class TwoGroupModel(BaseModel):
             self.old_lr2 = opt.lr2
 
     # ----------------------------------------------------------- inputs -- #
-    def _to_device(self, arr, channels):
-        """(B, H, W, 3) float32 numpy -> (B, len(channels), H, W) on the
-        device."""
-        t = torch.from_numpy(np.ascontiguousarray(arr[..., channels]))
-        return t.permute(0, 3, 1, 2).contiguous().to(self.device)
+    STEP_INPUTS = ('input_A', 'input_B')
 
-    def set_input(self, input):
+    @staticmethod
+    def _nchw(arr, channels):
+        """(B, H, W, 3) float32 numpy -> (B, len(channels), H, W)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr[..., channels]))
+        return t.permute(0, 3, 1, 2).contiguous()
+
+    def host_inputs(self, input):
         AtoB = self.opt.which_direction == 'AtoB'
         g0, g1 = self.groups
         if self.opt.dataset_mode == 'aligned':
@@ -59,9 +61,8 @@ class TwoGroupModel(BaseModel):
         else:
             raise NotImplementedError(
                 'Dataset mode [%s] is not recognized' % self.opt.dataset_mode)
-        self.input_A = self._to_device(a, g0)
-        self.input_B = self._to_device(b, g1)
         self.image_paths = input['A_paths' if AtoB else 'B_paths']
+        return {'input_A': self._nchw(a, g0), 'input_B': self._nchw(b, g1)}
 
     # ---------------------------------------------------------- networks -- #
     def build_F(self, in_nc, out_nc, suffix='2'):

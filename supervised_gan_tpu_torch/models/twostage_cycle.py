@@ -24,8 +24,8 @@ from collections import OrderedDict
 
 import torch
 
-from .pools import init_pool, pool_query
-from .base import adam
+from .pools import init_pool
+from .base import adam, set_lr
 from .two_group import TwoGroupModel
 from .. import nn
 from ..nn.losses import bce_loss, gan_loss, weighted_l1_loss
@@ -66,6 +66,8 @@ def _unported_training_flags(opt):
 
 
 class TwoStageCycleModel(TwoGroupModel):
+    STEP_OUTPUTS = ('_metrics', '_taps')
+
     def initialize(self, opt):
         if opt.isTrain and _unported_training_flags(opt):
             raise NotImplementedError(
@@ -96,11 +98,11 @@ class TwoStageCycleModel(TwoGroupModel):
             self.optG = adam([(self.netG1.parameters(), self.old_lr1),
                               (self.netG2.parameters(), self.old_lr2),
                               (self.netF2.parameters(), self.old_lr2)],
-                             opt.beta1)
+                             opt.beta1, self.device)
             self.optD1 = adam([(self.netD1.parameters(), self.old_lr1)],
-                              opt.beta1)
+                              opt.beta1, self.device)
             self.optD2 = adam([(self.netD2.parameters(), self.old_lr2)],
-                              opt.beta1)
+                              opt.beta1, self.device)
             fs, a_small = opt.fineSize, self._label_space_size()
             self.pools = {
                 'pool1': init_pool(opt.pool_size,
@@ -187,9 +189,13 @@ class TwoStageCycleModel(TwoGroupModel):
             return
         for group, lr in zip(self.optG.param_groups,
                              (self.old_lr1, self.old_lr2, self.old_lr2)):
-            group['lr'] = lr
-        self.optD1.param_groups[0]['lr'] = self.old_lr1
-        self.optD2.param_groups[0]['lr'] = self.old_lr2
+            set_lr(group, lr)
+        set_lr(self.optD1.param_groups[0], self.old_lr1)
+        set_lr(self.optD2.param_groups[0], self.old_lr2)
+
+    def pool_queries(self):
+        return (['pool1'] * self.opt.n_update_D1
+                + ['pool2'] * self.opt.n_update_D2)
 
     # ---------------------------------------------------------- training -- #
     def draw_noises(self):
@@ -225,8 +231,7 @@ class TwoStageCycleModel(TwoGroupModel):
 
     def update_D1(self, taps):
         lsgan = not self.opt.no_lsgan1
-        fake = pool_query(self.pools['pool1'], taps['fake_A'].detach(),
-                          self.pool_generator)
+        fake = self.query_pool('pool1', taps['fake_A'].detach())
         real = self.transform_inverse(self.input_A)
         lf = sum(gan_loss(o, False, lsgan)
                  for o in self.bank_apply(self.netD1, fake))
@@ -238,10 +243,9 @@ class TwoStageCycleModel(TwoGroupModel):
 
     def update_D2(self, taps):
         lsgan = not self.opt.no_lsgan2
-        fake = pool_query(self.pools['pool2'],
-                          cat_channels(self.input_A,
-                                       taps['fake_B_from_real_A']).detach(),
-                          self.pool_generator)
+        fake = self.query_pool(
+            'pool2',
+            cat_channels(self.input_A, taps['fake_B_from_real_A']).detach())
         real = cat_channels(self.input_A, self.input_B)
         loss_fake = sum(gan_loss(o, False, lsgan)
                         for o in self.bank_apply(self.netD2, fake))
@@ -300,7 +304,7 @@ class TwoStageCycleModel(TwoGroupModel):
         self.optG.step()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def optimize_parameters(self):
+    def train_step(self):
         o = self.opt
         taps = self._record()
         metrics = {}

@@ -7,6 +7,12 @@ discriminator front end (`matlab_gauss2d` :129, `gauss_blur_kernel` :141,
 Pallas, so they are plain torch here.  Traps kept: bilinear uses
 align_corners=True, and the blur's sigma is scale // 2 (the reference is
 Python 2).
+
+The interpolation taps and blur matrices are made on the host once per
+size and device and kept there (``_device_constant``): a host-to-device
+copy from pageable memory synchronizes the host with the device, and a
+captured CUDA graph cannot hold one.  So the first call at a size fills the
+cache, and a miss during a graph capture raises.
 """
 
 import numpy as np
@@ -32,19 +38,42 @@ def _interp_taps(in_size, out_size, align_corners=True):
     return i0, i1, 1.0 - w, w
 
 
+# (kind, sizes..., device, dtype) -> the tensors made for it on the device
+_DEVICE_CONSTANTS = {}
+
+
+def _device_constant(key, device, make):
+    """The tensors ``make()`` puts on ``device``, made once per key.  A miss
+    while a CUDA graph is being captured raises: the copy would synchronize,
+    which a capture cannot hold."""
+    key = key + (str(device),)
+    out = _DEVICE_CONSTANTS.get(key)
+    if out is None:
+        if device.type == 'cuda' and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError('ops.resample: %r is not on the device yet; run '
+                               'one eager step before capturing' % (key,))
+        out = _DEVICE_CONSTANTS[key] = make()
+    return out
+
+
 def _lerp_axis(x, dim, out_size, align_corners):
-    i0, i1, w0, w1 = _interp_taps(x.shape[dim], out_size, align_corners)
+    def make():
+        i0, i1, w0, w1 = _interp_taps(x.shape[dim], out_size, align_corners)
+        # the weights round to x's dtype, the sum runs in float32
+        return tuple([torch.from_numpy(i).to(x.device) for i in (i0, i1)]
+                     + [torch.from_numpy(w).to(x.device, x.dtype).float()
+                        for w in (w0, w1)])
+
+    i0, i1, w0, w1 = _device_constant(
+        ('lerp', x.shape[dim], out_size, align_corners, x.dtype), x.device,
+        make)
     shape = [1] * x.dim()
     shape[dim] = out_size
 
-    def weight(w):
-        # the weights round to x's dtype, the sum runs in float32
-        return torch.from_numpy(w).to(x.device, x.dtype).float().view(shape)
-
     def take(i):
-        return x.index_select(dim, torch.from_numpy(i).to(x.device)).float()
+        return x.index_select(dim, i).float()
 
-    return (take(i0) * weight(w0) + take(i1) * weight(w1)).to(x.dtype)
+    return (take(i0) * w0.view(shape) + take(i1) * w1.view(shape)).to(x.dtype)
 
 
 def bilinear_upsample(x, scale, align_corners=True):
@@ -114,8 +143,10 @@ def blur_downsample(x, scale_factor):
     if scale_factor <= 1:
         return x
     h, w = x.shape[2], x.shape[3]
-    ah = torch.from_numpy(_blur_matrix(h, scale_factor)).to(x.device)
-    aw = torch.from_numpy(_blur_matrix(w, scale_factor)).to(x.device)
+    ah, aw = _device_constant(
+        ('blur', h, w, scale_factor), x.device,
+        lambda: tuple(torch.from_numpy(_blur_matrix(n, scale_factor))
+                      .to(x.device) for n in (h, w)))
     y = torch.einsum('oh,nchw->ncow', ah, x.float())
     y = torch.einsum('pw,ncow->ncop', aw, y)
     return y.to(x.dtype)

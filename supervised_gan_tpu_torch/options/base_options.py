@@ -17,8 +17,6 @@ NOT_YET_PORTED = {
     'dcn_coordinator': '',
     'dcn_num_processes': 0,
     'dcn_process_id': 0,
-    # training flags (TrainOptions)
-    'steps_per_dispatch': 1,
 }
 
 

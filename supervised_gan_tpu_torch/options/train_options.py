@@ -1,6 +1,7 @@
 """Training options: a copy of supervised_gan_tpu/options/train_options.py
-(reference options/train_options.py:4-66).  --steps_per_dispatch above 1 is
-not yet ported and raises (base_options.py)."""
+(reference options/train_options.py:4-66).  --steps_per_dispatch runs its
+chunks as replays of the train step captured as a CUDA graph (on the CPU,
+as eager steps)."""
 
 from .base_options import BaseOptions
 
@@ -69,10 +70,12 @@ class TrainOptions(BaseOptions):
                        help='if set, write a torch.profiler trace of steps '
                             '10-20 into this directory (*.pt.trace.json)')
         p.add_argument('--steps_per_dispatch', type=int, default=1,
-                       help='scan this many training iterations inside one '
-                            'device dispatch (TPU; bit-identical to '
-                            'per-step training, display/print/save cadence '
-                            'is respected by flushing at boundaries)')
+                       help='run this many training iterations as one '
+                            'chunk: replays of the train step captured as '
+                            'a CUDA graph, no synchronize inside (the same '
+                            'draws and state as per-step training; '
+                            'display/print/save cadence is respected by '
+                            'flushing at boundaries)')
         p.add_argument('--abort_on_nan', action='store_true',
                        help='stop training when printed metrics go '
                             'non-finite instead of burning the remaining '

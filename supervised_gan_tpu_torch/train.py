@@ -11,14 +11,21 @@ model.optimize_parameters().  It runs on ``cuda:<first --gpu_ids>``; with no
 CUDA device it raises unless --gpu_ids -1 asks for the CPU.  TF32 is off
 (models/base.py `disable_tf32`).
 
+--steps_per_dispatch k accumulates batches and runs them as one
+``model.train_chunk`` (on a card: replays of the captured step,
+models/graph.py), flushing early at every step whose display, print or
+save must see that step's outputs, at the profiled steps 9, 19 and 20 (x
+batchSize), at the epoch's last full batch and at the epoch's end, as the
+JAX loop does (train.py:41-76 there).  Each chunk's size is printed.
+
 Unlike the JAX loop, which never blocks, it synchronizes the device after
-every step, so ``step_seconds`` times each step to its end (the bench,
-``python -m supervised_gan_tpu_torch.bench``, times windows of steps with
-no synchronize inside).  --profile_dir traces the steps from total_steps
-== 10 x batchSize to 20 x batchSize (train.py:47-49, 72-76 there) with
-torch.profiler and writes ``<profile_dir>/*.pt.trace.json``; a trace in
-which a kernel launch lost its device record fails the run and is not
-written (utils/profile.py).
+every dispatch (a step, or a chunk), so ``step_seconds`` times each to its
+end (the bench, ``python -m supervised_gan_tpu_torch.bench``, times windows
+of steps with no synchronize inside).  --profile_dir traces the steps from
+total_steps == 10 x batchSize to 20 x batchSize (train.py:47-49, 72-76
+there) with torch.profiler and writes ``<profile_dir>/*.pt.trace.json``; a
+trace in which a kernel launch lost its device record fails the run and is
+not written (utils/profile.py).
 """
 
 import random
@@ -36,11 +43,12 @@ from .utils.visualizer import Visualizer
 
 
 def main(args=None):
-    """Train; returns {'steps', 'step_seconds', 'trace'}: the iterations
-    run, the wall time of each optimize_parameters() up to a device
-    synchronization (the first includes the kernels' build), and for
-    --profile_dir {'path', 'launches', 'kernels', 'primer_lost'} of the
-    trace written (else None)."""
+    """Train; returns {'steps', 'step_seconds', 'chunks', 'trace'}: the
+    iterations run, the wall time of each dispatch (optimize_parameters(),
+    or train_chunk() under --steps_per_dispatch) up to a device
+    synchronization (the first includes the kernels' build), the steps of
+    each dispatch, and for --profile_dir {'path', 'launches', 'kernels',
+    'primer_lost'} of the trace written (else None)."""
     disable_tf32()
     opt = TrainOptions().parse(args)
     if opt.manualSeed is None:
@@ -57,25 +65,51 @@ def main(args=None):
     model = create_model(opt)
     visualizer = Visualizer(opt)
     cuda = model.device.type == 'cuda'
+    spd = max(1, opt.steps_per_dispatch)
     total_steps = 0
     step_seconds = []
+    chunks = []
     trace = written = None
+
+    def dispatch(batches, start):
+        if spd > 1:
+            model.train_chunk(batches)
+            print('dispatched a chunk of %d steps (to step %d)'
+                  % (len(batches), total_steps))
+        else:
+            model.set_input(batches[0])
+            model.optimize_parameters()
+        if cuda:
+            torch.cuda.synchronize(model.device)
+        step_seconds.append(time.time() - start)
+        chunks.append(len(batches))
 
     for epoch in range(1, opt.niter + opt.niter_decay + 1):
         epoch_start_time = time.time()
-        for data in dataset:
+        pending = []
+        for i, data in enumerate(dataset):
             iter_start_time = time.time()
             total_steps += opt.batchSize
             epoch_iter = total_steps - dataset_size * (epoch - 1)
             if opt.profile_dir and total_steps == 10 * opt.batchSize:
                 trace = Trace(model.device).start()
-            model.set_input(data)
-            model.optimize_parameters()
-            if cuda:
-                torch.cuda.synchronize(model.device)
-            step_seconds.append(time.time() - iter_start_time)
+            if not pending:
+                dispatch_start = iter_start_time
+            pending.append(data)
+            boundary = (total_steps % opt.display_freq == 0
+                        or total_steps % opt.print_freq == 0
+                        or total_steps % opt.save_latest_freq == 0
+                        or (opt.profile_dir
+                            and total_steps in (9 * opt.batchSize,
+                                                19 * opt.batchSize,
+                                                20 * opt.batchSize))
+                        or i + 1 == dataset_size // opt.batchSize)
+            if len(pending) < spd and not boundary:
+                continue
+            dispatch(pending, dispatch_start)
+            pending = []
             if trace is not None and total_steps == 20 * opt.batchSize:
-                trace.stop()
+                trace.stop(graph_kernels=model.graph_kernels())
                 written = dict(path=trace.export(opt.profile_dir),
                                launches=trace.launches,
                                kernels=trace.kernels,
@@ -107,6 +141,9 @@ def main(args=None):
                       % (epoch, total_steps))
                 model.save('latest')
 
+        if pending:
+            dispatch(pending, time.time())
+
         if epoch % opt.save_epoch_freq == 0:
             print('saving the model at the end of epoch %d, iters %d'
                   % (epoch, total_steps))
@@ -124,7 +161,7 @@ def main(args=None):
         print('profiler trace not written: the run ended at step %d, before '
               'step %d' % (total_steps, 20 * opt.batchSize))
     return {'steps': total_steps // opt.batchSize,
-            'step_seconds': step_seconds, 'trace': written}
+            'step_seconds': step_seconds, 'chunks': chunks, 'trace': written}
 
 
 if __name__ == '__main__':

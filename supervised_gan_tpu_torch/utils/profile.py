@@ -5,8 +5,9 @@ trace: 1-5 of them on the H100 with torch 2.11, the first wrapper kernel of
 a train step among them when there are 5.  So a trace on a CUDA device opens
 with PRIMER_SPINS spin kernels and a pause, which take those losses and
 which every count here leaves out; when it stops, the kernel launches of
-the traced stretch (the runtime calls in LAUNCH_CALLS) are counted against
-its device records.
+the traced stretch (the runtime calls in LAUNCH_CALLS, and for each replay
+of a captured step's CUDA graph its kernel nodes) are counted against its
+device records.
 
   ``traced(run, n, device)``: a trace of n calls of ``run``, taken again up
       to TRACES times while a launch lost its record, then a failure;
@@ -29,6 +30,7 @@ import torch
 PRIMER_SPINS = 32
 TRACES = 3
 LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel')
+GRAPH_LAUNCH = 'cudaGraphLaunch'
 
 
 class LostRecords(RuntimeError):
@@ -52,6 +54,15 @@ def device_rows(prof, n):
             for e in prof.key_averages() if _is_device_row(e)]
 
 
+def kernel_launches(prof):
+    """(kernels launched one by one, CUDA graph launches) in a primed trace
+    on a CUDA device, the primer's spins left out."""
+    events = prof.key_averages()
+    return (sum(e.count for e in events if e.key in LAUNCH_CALLS)
+            - PRIMER_SPINS,
+            sum(e.count for e in events if e.key.startswith(GRAPH_LAUNCH)))
+
+
 def is_copy(key):
     return key.startswith(('Memcpy', 'Memset'))
 
@@ -68,6 +79,7 @@ class Trace:
         self.host = host or not self.cuda
         self.prof = None
         self.primer_lost = self.launches = self.kernels = None
+        self.graph_launches = None
 
     def start(self):
         from torch.profiler import ProfilerActivity, profile
@@ -83,22 +95,29 @@ class Trace:
             time.sleep(0.02)
         return self
 
-    def stop(self):
+    def stop(self, graph_kernels=None):
         """Wait for the device, end the trace and count it.  Raises
         LostRecords when a launch of the traced stretch has no device
-        record (and the profiler recorded some).  On the CPU it only ends
-        the trace: there is no device record to count."""
+        record (and the profiler recorded some); ``graph_kernels``: the
+        kernel nodes of the CUDA graph the stretch replays, each replay a
+        launch of each (models/graph.py).  On the CPU it only ends the
+        trace: there is no device record to count."""
         if not self.cuda:
             self.prof.stop()
             return self
         torch.cuda.synchronize()
         self.prof.stop()
         events = self.prof.key_averages()
-        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+        launches, self.graph_launches = kernel_launches(self.prof)
+        if self.graph_launches:
+            if graph_kernels is None:
+                raise ValueError('the trace replays a CUDA graph: give its '
+                                 'kernel nodes (graph_kernels)')
+            launches += self.graph_launches * graph_kernels
         spins = sum(e.count for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and 'spin_kernel' in e.key)
-        self.launches = launches - PRIMER_SPINS
+        self.launches = launches
         self.primer_lost = PRIMER_SPINS - spins
         self.kernels = sum(e.count for e in events
                            if _is_device_row(e) and not is_copy(e.key))
@@ -118,17 +137,17 @@ class Trace:
         return path
 
 
-def traced(run, n, device='cuda', host=True):
+def traced(run, n, device='cuda', host=True, graph_kernels=None):
     """A torch.profiler trace of n calls of ``run`` in which every kernel
-    launch has its device record, traced again up to TRACES times.
-    Returns (the profile, how many of the primer's records it lost; None
-    on the CPU)."""
+    launch has its device record, traced again up to TRACES times
+    (``graph_kernels`` as Trace.stop takes it).  Returns (the profile, how
+    many of the primer's records it lost; None on the CPU)."""
     for attempt in range(1, TRACES + 1):
         trace = Trace(device, host).start()
         for _ in range(n):
             run()
         try:
-            trace.stop()
+            trace.stop(graph_kernels)
             return trace.prof, trace.primer_lost
         except LostRecords as e:
             print('  trace %d: %s' % (attempt, e))

@@ -1,10 +1,12 @@
 """The port's bench entry point, ``python -m supervised_gan_tpu_torch.bench``,
 on the CPU: its DSGAN_ARGS with the narrow 128 px flags of
 tests/test_torch_train_step.py after them, one window of 2 steps, on the
-kernels' route and under --no_pallas.  Checked: the
-record's keys and types, finite losses, the per-step dispatch, the chunked
-mode left null, every device field null on the CPU, the gates echoing the
-route, and the command line printing the record as its last line."""
+kernels' route and under --no_pallas, then one window of the chunked
+dispatch (chunks of 2 steps, eager on the CPU).  Checked: the record's
+keys and types, finite losses, the per-step and chunked rates with the
+headline the better of them, every device field null on the CPU, the gates
+echoing the route, and the command line printing the record as its last
+line."""
 
 import json
 import sys
@@ -18,9 +20,13 @@ from test_torch_train_step import FLAGS
 
 ROUTES = {'kernels': [], 'no_pallas': ['--no_pallas']}
 DEVICE_FIELDS = ('device_ms_per_step', 'device_kernels_per_step',
-                 'busy_share', 'host_gap_ms', 'device_rate_img_s', 'device')
+                 'busy_share', 'host_gap_ms', 'device_rate_img_s', 'device',
+                 'chunked_device_ms_per_step',
+                 'chunked_device_kernels_per_step', 'chunked_busy_share',
+                 'graph_kernels', 'chunked_kernels_outside_graph_per_step')
 FLOAT_FIELDS = ('value', 'per_step_img_s', 'wall_ms_per_step',
-                'enqueue_ms_per_step', 'warmup_s')
+                'enqueue_ms_per_step', 'warmup_s', 'chunked_img_s',
+                'chunked_wall_ms_per_step')
 
 
 def _flags(ckpt, route):
@@ -33,7 +39,7 @@ def record(request, tmp_path_factory):
     ckpt = str(tmp_path_factory.mktemp('bench'))
     try:
         rec = bench.main(_flags(ckpt, request.param), windows=1,
-                         window_steps=2, trace_steps=1)
+                         window_steps=2, trace_steps=1, chunk=2)
     finally:
         K.set_kernels_enabled(True)
     return request.param, rec
@@ -43,8 +49,11 @@ def test_record_keys_and_types(record):
     _, rec = record
     assert set(rec) == {
         'metric', 'value', 'unit', 'dispatch_mode', 'per_step_img_s',
-        'windows_img_s', 'window_steps', 'chunked_img_s',
-        'chunked_windows_img_s', 'chunked_note', 'finite',
+        'windows_img_s', 'window_steps', 'chunk_steps', 'chunked_img_s',
+        'chunked_windows_img_s', 'chunked_wall_ms_per_step',
+        'chunked_device_ms_per_step', 'chunked_device_kernels_per_step',
+        'chunked_busy_share', 'graph_kernels',
+        'chunked_kernels_outside_graph_per_step', 'finite',
         'wall_ms_per_step', 'enqueue_ms_per_step', 'device_ms_per_step',
         'device_kernels_per_step', 'busy_share', 'host_gap_ms',
         'device_rate_img_s', 'trace_steps', 'trace_primer_records_lost',
@@ -54,20 +63,27 @@ def test_record_keys_and_types(record):
     assert rec['unit'] == 'images/sec'
     for k in FLOAT_FIELDS:
         assert isinstance(rec[k], float) and rec[k] > 0, k
-    assert rec['value'] == rec['per_step_img_s'] == rec['windows_img_s'][0]
+    assert rec['per_step_img_s'] == rec['windows_img_s'][0]
+    assert rec['chunked_img_s'] == rec['chunked_windows_img_s'][0]
     assert len(rec['windows_img_s']) == 1 and rec['window_steps'] == 2
+    assert len(rec['chunked_windows_img_s']) == 1 and rec['chunk_steps'] == 2
     assert rec['trace_steps'] == 1
-    assert abs(rec['wall_ms_per_step'] * rec['value'] - 1e3) < 1e-6
+    assert abs(rec['wall_ms_per_step'] * rec['per_step_img_s'] - 1e3) < 1e-6
+    assert abs(rec['chunked_wall_ms_per_step'] * rec['chunked_img_s']
+               - 1e3) < 1e-6
     assert json.loads(json.dumps(rec)) == rec
 
 
 def test_record_is_finite_and_per_step(record):
+    """The headline is the better dispatch mode, named as the JAX bench
+    names it."""
     _, rec = record
     assert rec['finite'] is True
-    assert rec['dispatch_mode'] == 'per_step'
-    assert rec['chunked_img_s'] is None
-    assert rec['chunked_windows_img_s'] == []
-    assert 'steps_per_dispatch' in rec['chunked_note']
+    assert rec['chunked_img_s'] is not None
+    assert rec['value'] == max(rec['per_step_img_s'], rec['chunked_img_s'])
+    assert rec['dispatch_mode'] == (
+        'chunked[k=2]' if rec['chunked_img_s'] > rec['per_step_img_s']
+        else 'per_step')
 
 
 def test_device_fields_null_on_the_cpu(record):
@@ -93,7 +109,7 @@ def test_cli_prints_the_record_last(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(sys, 'argv', ['bench'] + _flags(str(tmp_path),
                                                          'no_pallas'))
     try:
-        bench.main(windows=1, window_steps=1, trace_steps=1)
+        bench.main(windows=1, window_steps=1, trace_steps=1, chunk=1)
     finally:
         K.set_kernels_enabled(True)
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -92,12 +92,11 @@ def test_train_without_cuda_raises(dataroot, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (['--steps_per_dispatch', '2'], '--steps_per_dispatch'),
     (['--use_multi_class_GAN'], '--use_multi_class_GAN'),
     (['--GAN_losses_D2', 'real_fake', 'fake_fake'], '--GAN_losses_D2'),
     (['--use_fixed_noise1'], '--use_fixed_noise1'),
     (['--no_cgan'], '--no_cgan')], ids=[
-    'extra0---steps_per_dispatch', 'extra2---use_multi_class_GAN',
+    'extra2---use_multi_class_GAN',
     'extra3---GAN_losses_D2', 'extra4---use_fixed_noise1',
     'extra5---no_cgan'])
 def test_unported_training_flags_raise(dataroot, tmp_path, extra, flag):
