@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DSGAN sampler, DSGAN train step (per step and
 chunked, --steps_per_dispatch, as a CUDA graph of the step), stage-1 label
-GAN, the README DSGAN workflow and the bench entry point on one CUDA card,
-on the hand-written kernels and under --no_pallas, and hold every
-hand-written kernel against its plain PyTorch version.
+GAN, the README DSGAN workflow, SGAN step 2 (--model cgan: training,
+chunked, its conditional sampler), the segmentation gate (train_ss,
+test_ss) and the bench entry points on one CUDA card, on the hand-written
+kernels and under --no_pallas, and hold every hand-written kernel against
+its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -158,8 +160,31 @@ comparison is float32 against float32.
      counts, median step time of each;
  14. phase 10 again with the region's gate on, then in bf16 on both sides
      with the gate on (see phase_reference_step for its tolerances);
- 15. a JSON line of per-kernel results, the card line, and the last line
-     {"ok": true, "device": {...}}.
+ 15. SGAN step 2 and the segmentation gate: a synthetic set of 512^2 PNGs
+     (train 4, val 2, test 4; discs in R, their complement in G, an image
+     of them in B); the kernel sites of one f32 cgan step (CGAN_FLAGS,
+     tools/bench_extra.py:54-68) and of one segmentation step and val
+     forward (SEG_ARCH, tools/quality_eval.py:94-104 at 512 px), their
+     totals against the launch counts written from the networks' structure
+     (CGAN_PER_STEP, SEG_PER_STEP, SEG_PER_FORWARD), and the sites the DSGAN
+     step does not have, printed, each with its tc_plan or in_plan checked;
+     conv4s2, convt4s2 (forward and as dx) and the IN kernels (forward and
+     backward) there as in 3 and 6, f32 and bf16, with device times
+     against the library calls; the train entry point on the cgan command,
+     8 bf16 steps with exact launch counts, and with --steps_per_dispatch
+     10 over two epochs (chunks 8 and 8; the wrappers see 3 steps); 4
+     chunked cgan steps bitwise equal to 4 eager ones under deterministic
+     algorithms (pools, dropout and the Gaussian noise on); one f32 cgan
+     iteration card vs CPU as in 10 (losses 1e-3, gradients within
+     max(5e-2, 2 x floor) in L2); the conditional sampler on the trained G
+     over 4 test images (launches, images/s); bench_extra's
+     cgan_pix2pix_512 on the kernels and under --no_pallas, held as the
+     bench's arms; train_ss (4 steps, validation, the best checkpoint) and
+     test_ss on it: exact launch counts, RandScore and meanIU finite and
+     within [0, 1], the step time and the test images/s; the segmentation
+     step through bench.main on both routes, f32, held as the bench's arms;
+ 16. a JSON line of per-kernel results (launches: the DSGAN train step's),
+     the card line, and the last line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
 the profiler loses at its start (see traced), and must hold a device
@@ -196,9 +221,12 @@ import torch.nn.functional as F  # noqa: E402
 from PIL import Image  # noqa: E402
 
 from supervised_gan_tpu_torch import bench  # noqa: E402
+from supervised_gan_tpu_torch import bench_extra  # noqa: E402
 from supervised_gan_tpu_torch import nn as tnn  # noqa: E402
 from supervised_gan_tpu_torch import test as sampler  # noqa: E402
+from supervised_gan_tpu_torch import test_ss  # noqa: E402
 from supervised_gan_tpu_torch import train as trainer  # noqa: E402
+from supervised_gan_tpu_torch import train_ss  # noqa: E402
 from supervised_gan_tpu_torch.models import create_model  # noqa: E402
 from supervised_gan_tpu_torch.models.base import CAPTURE_AFTER  # noqa: E402
 from supervised_gan_tpu_torch.nn import core as nn_core  # noqa: E402
@@ -240,7 +268,8 @@ PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 CONV_KERNELS = ('conv3x3', 'conv3x3_dx', 'convt4s2', 'convt4s2_dx',
-                'convt4s2_f2', 'conv3x3_dw', 'conv4s2', 'conv3x3_in_stats')
+                'convt4s2_f2', 'convt4s2_fwd', 'conv3x3_dw', 'conv4s2',
+                'conv3x3_in_stats')
 
 # The sampler's flags: the architecture flags of the README DSGAN command
 # (README.md:60-78), sampling at 512 px.
@@ -2154,34 +2183,52 @@ def phase_reference_step(gate=False, dtype='float32', no_pallas=False):
                                else [])
 
 
-def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
-                    floor_factor, card_flags):
-    extra = ['--compute_dtype', dtype, '--pool_size', '0', '--no_dropout2']
-    # the CPU models, built after the card's step, turn the kernels back on
-    card = create_model(train_opt(extra + card_flags
-                                  + ['--name', TRAIN_NAME + tag]))
+def _dsgan_draws(model):
+    """The DSGAN step's noises, the same on every model: drawn once on the
+    CPU from seed 11, on the model's device."""
     gen = torch.Generator().manual_seed(11)
-    shapes = card._noise_shapes()
-    noises = {k: torch.randn(v, generator=gen) for k, v in shapes.items()}
-    card.draw_noises = lambda: {k: v.to(DEV) for k, v in noises.items()}
+    noises = {k: torch.randn(v, generator=gen)
+              for k, v in model._noise_shapes().items()}
+    model.draw_noises = lambda: {k: v.to(model.device)
+                                 for k, v in noises.items()}
+
+
+# what _reference_step needs of a recipe: its flags and run name, the flags
+# that take out its pools and dropout, a hook that gives every model the
+# same draws, and its step in parts (models/twostage_cycle.py)
+Recipe = collections.namedtuple('Recipe', 'flags name extra draws parts')
+DSGAN_RECIPE = Recipe(TRAIN_FLAGS, TRAIN_NAME, ['--pool_size', '0',
+                                                '--no_dropout2'],
+                      _dsgan_draws, lambda m, d_from=None:
+                      _step_in_parts(m, d_from))
+
+
+def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
+                    floor_factor, card_flags, recipe=DSGAN_RECIPE):
+    extra = ['--compute_dtype', dtype] + recipe.extra
+    # the CPU models, built after the card's step, turn the kernels back on
+    card = create_model(TrainOptions().parse(
+        recipe.flags + ON_CARD + extra + card_flags
+        + ['--name', recipe.name + tag]))
+    recipe.draws(card)
     batch = fixed_batch(seed=5)
     weights = {label: {k: v.cpu().clone()
                         for k, v in net.state_dict().items()}
                for label, net in card.nets().items()}
 
     def cpu_model(tag):
-        m = create_model(TrainOptions().parse(TRAIN_FLAGS + extra + [
-            '--gpu_ids', '-1', '--name', TRAIN_NAME + tag]))
+        m = create_model(TrainOptions().parse(recipe.flags + extra + [
+            '--gpu_ids', '-1', '--name', recipe.name + tag]))
         for label, net in m.nets().items():
             net.load_state_dict(weights[label])
-        m.draw_noises = lambda: dict(noises)
+        recipe.draws(m)
         m.set_input(batch)
         return m
 
     card.set_input(batch)
     K.reset_launch_counts()
     t = time.perf_counter()
-    m_card = _step_in_parts(card)
+    m_card = recipe.parts(card)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t
     card_launches = K.launch_counts()
@@ -2190,7 +2237,7 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
           % (card_flags, card_launches))
     cpu = cpu_model(tag + '_cpu')
     t = time.perf_counter()
-    m_cpu = _step_in_parts(cpu, d_from=card)
+    m_cpu = recipe.parts(cpu, d_from=card)
     cpu_s = time.perf_counter() - t
     worst_metric = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
                        for k in m_cpu)
@@ -2201,7 +2248,7 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
         for net in noisy.nets().values():
             for p in net.parameters():
                 p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=pg))
-    _step_in_parts(noisy, d_from=card)
+    recipe.parts(noisy, d_from=card)
     floor = {n: a for a, _, n in _grad_diffs(noisy, cpu, noise_only)}
     del noisy
     # per parameter: (card vs CPU, its floor, its limit), nearest the limit
@@ -2261,51 +2308,66 @@ BENCH_DEVICE_FIELDS = ('device_ms_per_step', 'device_kernels_per_step',
                        'chunked_kernels_outside_graph_per_step')
 
 
+def _bench_arm(name, run, kernels, per_step):
+    """One bench record, ``run()`` printing it, held as phase_bench holds
+    its arms; ``per_step``: the wrappers' launches a step on the kernels'
+    route."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rec = run()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print('  bench %s: %s' % (name, buf.getvalue().splitlines()[-1]))
+    check(rec['finite'] and rec['value'] > 0
+          and len(rec['windows_img_s']) == BENCH_WINDOWS
+          and len(rec['chunked_windows_img_s']) == BENCH_WINDOWS,
+          'bench %s: not finite or no rate' % name)
+    check(all(rec[k] is not None for k in BENCH_DEVICE_FIELDS),
+          'bench %s: a device field is null' % name)
+    check(rec['gates']['kernels'] == kernels
+          and rec['gates']['tf32'] == {'cudnn': False, 'matmul': False},
+          'bench %s: gates %s' % (name, rec['gates']))
+    check(rec['graph_kernels'] == rec['device_kernels_per_step']
+          and rec['chunked_device_kernels_per_step']
+          == rec['graph_kernels']
+          + rec['chunked_kernels_outside_graph_per_step'],
+          'bench %s: the chunked step ran %s device kernels a step (%s '
+          'beside its replay), its graph holds %s, the eager step ran %s'
+          % (name, rec['chunked_device_kernels_per_step'],
+             rec['chunked_kernels_outside_graph_per_step'],
+             rec['graph_kernels'], rec['device_kernels_per_step']))
+    want = {k: float(v) for k, v in expected(
+        per_step if kernels else {}, 1).items()}
+    check(rec['launches_per_step'] == want, 'bench %s: launches a step '
+          '%s, expected %s' % (name, rec['launches_per_step'], want))
+    return rec
+
+
 def phase_bench():
     """supervised_gan_tpu_torch.bench.main on each arm in turn, its record
-    printed as a line.  Checked: finite losses, value > 0, three windows
-    each way (per step and chunked), every device field set (bench.main
-    fails when a launch lost its device record), the gates, the wrappers'
-    launches a step: the train phase's on the kernels' route (0 for the
-    region's two), every one 0 under --no_pallas; and the chunked step's
-    traced device kernels a step, and its graph's kernel nodes, equal to
-    the eager step's: the graph runs every kernel of the step."""
+    printed as a line.  Checked (_bench_arm): finite losses, value > 0,
+    three windows each way (per step and chunked), every device field set
+    (bench.main fails when a launch lost its device record), the gates, the
+    wrappers' launches a step: the train phase's on the kernels' route (0
+    for the region's two), every one 0 under --no_pallas; and the chunked
+    step's traced device kernels a step, and its graph's kernel nodes, equal
+    to the eager step's: the graph runs every kernel of the step."""
+    return _bench_arms(BENCH_ARMS, bench.main, LAUNCHES_PER_STEP)
+
+
+def _bench_arms(arms, bench_fn, per_step):
+    """``bench_fn(flags, **windows)`` on each arm in turn, each record held
+    by _bench_arm, with ``per_step`` launches a step on the kernels'
+    route."""
     out = {}
-    for name, flags in BENCH_ARMS:
-        kernels = '--no_pallas' not in flags
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rec = bench.main(flags + [
-                '--checkpoints_dir', CKPT_DIR,
-                '--name', '%s_bench_%s' % (NAME, name.replace(' ', '_'))],
+    for name, flags in arms:
+        out[name] = _bench_arm(
+            name, lambda flags=flags, name=name: bench_fn(
+                flags + ['--checkpoints_dir', CKPT_DIR, '--name',
+                         '%s_bench_%s' % (NAME, name.replace(' ', '_'))],
                 windows=BENCH_WINDOWS, window_steps=BENCH_WINDOW_STEPS,
-                trace_steps=BENCH_TRACE_STEPS)
-        gc.collect()
-        torch.cuda.empty_cache()
-        print('  bench %s: %s' % (name, buf.getvalue().splitlines()[-1]))
-        check(rec['finite'] and rec['value'] > 0
-              and len(rec['windows_img_s']) == BENCH_WINDOWS
-              and len(rec['chunked_windows_img_s']) == BENCH_WINDOWS,
-              'bench %s: not finite or no rate' % name)
-        check(all(rec[k] is not None for k in BENCH_DEVICE_FIELDS),
-              'bench %s: a device field is null' % name)
-        check(rec['gates']['kernels'] == kernels
-              and rec['gates']['tf32'] == {'cudnn': False, 'matmul': False},
-              'bench %s: gates %s' % (name, rec['gates']))
-        check(rec['graph_kernels'] == rec['device_kernels_per_step']
-              and rec['chunked_device_kernels_per_step']
-              == rec['graph_kernels']
-              + rec['chunked_kernels_outside_graph_per_step'],
-              'bench %s: the chunked step ran %s device kernels a step (%s '
-              'beside its replay), its graph holds %s, the eager step ran %s'
-              % (name, rec['chunked_device_kernels_per_step'],
-                 rec['chunked_kernels_outside_graph_per_step'],
-                 rec['graph_kernels'], rec['device_kernels_per_step']))
-        want = {k: float(v) for k, v in expected(
-            LAUNCHES_PER_STEP if kernels else {}, 1).items()}
-        check(rec['launches_per_step'] == want, 'bench %s: launches a step '
-              '%s, expected %s' % (name, rec['launches_per_step'], want))
-        out[name] = rec
+                trace_steps=BENCH_TRACE_STEPS),
+            '--no_pallas' not in flags, per_step)
     K.set_kernels_enabled(True)
     return out
 
@@ -2449,18 +2511,19 @@ def _eager_steps(model, batches):
         model.optimize_parameters()
 
 
-def _chunk_runs_deterministic(dtype):
+def _chunk_runs_deterministic(dtype, make=_train_model):
     """Under torch.use_deterministic_algorithms (warn only), the states
-    after CHUNK_STEPS steps of three models from one seed and one state (the
-    bench configuration, pools and dropout on): A and A2 by eager steps on
-    the same batches, B by one train_chunk of them (two eager steps, then
-    its capture and two replays)."""
+    after CHUNK_STEPS steps of three models from one seed and one state
+    (``make(dtype, label)``; by default the bench configuration, pools and
+    dropout on): A and A2 by eager steps on the same batches, B by one
+    train_chunk of them (two eager steps, then its capture and two
+    replays)."""
     batches = [fixed_batch(seed=10 + i) for i in range(CHUNK_STEPS)]
     states = {}
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         for label in ('A', 'A2', 'B'):
-            model = _train_model(dtype, label)
+            model = make(dtype, label)
             if label == 'B':
                 model.train_chunk(batches)
                 check(model.graph_kernels() is not None
@@ -2652,6 +2715,488 @@ def phase_chunked_driver():
                                counts))
     return dict(chunks=r['chunks'], step_seconds=r['step_seconds'],
                 launches=counts, losses=losses[0])
+
+
+# --------------------- SGAN step 2 (cgan) and the segmentation gate -- #
+
+CGAN_NAME = 'chip_smoke_cgan'
+SEG_NAME = 'chip_smoke_seg'
+SEG_DATA = os.path.join(RESULTS_DIR, 'seg_data')
+SEG_SPLITS = (('train', 4), ('val', 2), ('test', 4))
+
+
+def _with(args, **values):
+    """``args`` with the value of each --flag named in ``values``
+    replaced."""
+    out = list(args)
+    for flag, value in values.items():
+        out[out.index('--' + flag) + 1] = value
+    return out
+
+
+# The cgan step: tools/bench_extra.py:54-68 (the README's SGAN step 2,
+# unet_256 ngf 64 with dropout and injected Gaussian noise, a 2-scale D bank
+# ndf 64, 512 px, bf16), as supervised_gan_tpu_torch/bench_extra.py copies
+# it, on the synthetic 1024^2 set; and its sampler's flags (the architecture
+# ones) on the segmentation set's 512^2 test images.
+CGAN_FLAGS = _with(bench_extra.CGAN_ARGS, dataroot=DATA_DIR, name=CGAN_NAME,
+                   checkpoints_dir=CKPT_DIR)
+CGAN_SAMPLER = [
+    '--dataroot', SEG_DATA, '--model', 'cgan', '--which_direction', 'AtoB',
+    '--dataset_mode', 'single', '--loadSize', '512', '--fineSize', '512',
+    '--input_nc', '2', '--output_nc', '1', '--which_model_netG', 'unet_256',
+    '--ngf', '64', '--noise_nc', '8', '--noiseSize', '4', '--norm',
+    'instance', '--add_gaussian_noise', '--which_channel', 'rg_b',
+    '--manualSeed', '0', '--compute_dtype', 'bfloat16', '--checkpoints_dir',
+    CKPT_DIR, '--display_id', '0']
+# The segmentation gate: tools/quality_eval.py:94-104 (unet_128 with
+# dropout, InstanceNorm, b -> the rg classes, no D, RandScore and meanIU)
+# at 512 px with ngf 16, the scale of its 512 px run (QUALITY_r04_512.json)
+SEG_ARCH = [
+    '--dataroot', SEG_DATA, '--name', SEG_NAME, '--model', 'segmentation',
+    '--which_direction', 'AtoB', '--dataset_mode', 'single',
+    '--loadSize', '512', '--fineSize', '512', '--batchSize', '1',
+    '--which_channel', 'b_rg', '--which_model_netG', 'unet_128',
+    '--ngf', '16', '--noise_nc', '4', '--noiseSize', '4', '--norm',
+    'instance', '--which_metric', 'RandScore', 'meanIU',
+    '--which_model_netD', 'None', '--manualSeed', '0', '--display_id', '0',
+    '--checkpoints_dir', CKPT_DIR]
+SEG_TRAIN = ['--lambda_A', '1', '--cache_data']
+SEG_BENCH = ['--lambda_A', '1']     # bench.main feeds a fixed batch
+
+# Kernel launches of one cgan step (n_update_D 1, n_update_G 2), from the
+# networks' structure.  G (unet_256) runs 3 times (the first forward, then
+# one recorded after each G update, the last without a graph): 8 conv4s2
+# (the stem sees the label), 8 convt4s2 and 13 IN each.  The D bank
+# (n_layers 3 and 4, both at scale 1) has 7 conv4s2 (2 stems) and 7 IN; the
+# D update runs it on the pooled fake and on the real pair (detached: no
+# stem dx, every dW), each G update once (D held fixed: every dx).  Each G
+# update backpropagates through its recorded G: the dx of its 7 conv4s2 past
+# the stem (convt4s2) and of its 8 convt4s2 (conv4s2).  Every IN forward
+# with a gradient has its backward.
+G256_DOWN, G256_UP, G256_IN = 8, 8, 13
+CG_D_CONV, CG_D_STEMS, CG_G_RUNS, CG_G_UPDATES = 7, 2, 3, 2
+CGAN_PER_STEP = {
+    'conv4s2': (CG_G_RUNS * G256_DOWN + (2 + CG_G_UPDATES) * CG_D_CONV
+                + CG_G_UPDATES * G256_UP),
+    'convt4s2': (CG_G_RUNS * G256_UP + 2 * (CG_D_CONV - CG_D_STEMS)
+                 + CG_G_UPDATES * CG_D_CONV
+                 + CG_G_UPDATES * (G256_DOWN - 1)),
+    'instance_norm_act': CG_G_RUNS * G256_IN + (2 + CG_G_UPDATES) * CG_D_CONV,
+    'instance_norm_bwd': (2 + CG_G_UPDATES) * CG_D_CONV
+                         + CG_G_UPDATES * G256_IN,
+}
+CGAN_PER_SAMPLE = {'conv4s2': G256_DOWN, 'convt4s2': G256_UP,
+                   'instance_norm_act': G256_IN}
+# one segmentation step (no D, n_update_G 1): its unet_128, F2's structure,
+# forward and backward (no dx of the stem); a val or test forward: once
+SEG_PER_STEP = {'conv4s2': F2_DOWN + F2_UP, 'convt4s2': F2_UP + F2_DOWN - 1,
+                'instance_norm_act': F2_IN, 'instance_norm_bwd': F2_IN}
+SEG_PER_FORWARD = {'conv4s2': F2_DOWN, 'convt4s2': F2_UP,
+                   'instance_norm_act': F2_IN}
+NEW_KINDS = ('conv4s2', 'ConvT4s2', 'conv4s2_dx', 'InstanceNormAct',
+             'instance_norm_bwd')
+
+
+def _plus(*counts):
+    out = collections.Counter()
+    for c in counts:
+        out.update(c)
+    return dict(out)
+
+
+def write_seg_set():
+    """SEG_SPLITS 512^2 RGB PNGs: a foreground of random discs in R, its
+    complement in G, an image in B that shows the foreground through
+    noise."""
+    rng = np.random.RandomState(1)
+    yy, xx = np.mgrid[:512, :512]
+    for split, n in SEG_SPLITS:
+        d = os.path.join(SEG_DATA, split)
+        os.makedirs(d, exist_ok=True)
+        for i in range(n):
+            fg = np.zeros((512, 512), bool)
+            for _ in range(24):
+                cy, cx = rng.randint(0, 512, 2)
+                fg |= (yy - cy) ** 2 + (xx - cx) ** 2 < rng.randint(8, 40) ** 2
+            a = np.zeros((512, 512, 3), np.uint8)
+            a[..., 0] = fg * 255
+            a[..., 1] = 255 - a[..., 0]
+            a[..., 2] = np.clip(80 + 100 * fg + rng.normal(0, 30, fg.shape),
+                                0, 255)
+            Image.fromarray(a).save(os.path.join(d, '%03d.png' % i))
+
+
+def record_step_sites(run):
+    """``run()`` with the kernel wrappers and Functions wrapped to count
+    their calls by signature: conv4s2 (forward and as convt4s2's dx), the
+    ConvT4s2 forwards, convt4s2's launches as conv4s2's dx (those outside a
+    ConvT4s2 forward), InstanceNormAct and instance_norm_bwd; as
+    record_train_sites keys them."""
+    books = {k: collections.Counter() for k in NEW_KINDS}
+    saved, in_convt = [], []
+
+    def patch(obj, name, new):
+        saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    patch(functions, 'conv4s2', _recorder(
+        K.conv4s2, lambda x, w, b=None: (_shape(x), _shape(w), b is not None),
+        books['conv4s2']))
+    patch(functions, 'instance_norm_bwd', _recorder(
+        K.instance_norm_bwd, lambda x, g, m, r, slope=None: (_shape(x), slope),
+        books['instance_norm_bwd']))
+
+    def convt4s2(x, w, b=None):
+        if not in_convt:
+            books['conv4s2_dx'][(_shape(x), _shape(w))] += 1
+        return K.convt4s2(x, w, b)
+    patch(functions, 'convt4s2', convt4s2)
+
+    class ConvT:
+        @staticmethod
+        def apply(x, w, b):
+            books['ConvT4s2'][(_shape(x), _shape(w), b is not None)] += 1
+            in_convt.append(True)
+            try:
+                return K.ConvT4s2.apply(x, w, b)
+            finally:
+                in_convt.pop()
+
+    class INAct:
+        @staticmethod
+        def apply(x, eps, slope):
+            books['InstanceNormAct'][(_shape(x), slope)] += 1
+            return K.InstanceNormAct.apply(x, eps, slope)
+
+    patch(ops_conv, 'ConvT4s2', ConvT)
+    patch(ops_norm, 'InstanceNormAct', INAct)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, old in reversed(saved):
+            setattr(obj, name, old)
+    return books
+
+
+def _in_key(kv):
+    return (kv[0][0], str(kv[0][1]))
+
+
+def phase_new_sites(dsgan_books):
+    """The kernel sites of one f32 cgan step (CGAN_FLAGS) and of one
+    segmentation step and val forward (SEG_ARCH), recorded as the DSGAN
+    step's are; their totals against CGAN_PER_STEP, SEG_PER_STEP and
+    SEG_PER_FORWARD; the sites the DSGAN step does not have (the new
+    sites), printed, with each one's tc_plan (conv4s2, convt4s2 forward and
+    dx: the kernel's split and route) or in_plan (the IN kernels, both
+    dtypes and directions) checked against the library.  Returns (the new
+    sites' books, counted over one cgan step and one segmentation step and
+    forward, in train_cases' keys; the per-path books)."""
+    paths = {}
+    cg = create_model(TrainOptions().parse(CGAN_FLAGS + ON_CARD + [
+        '--compute_dtype', 'float32', '--name', CGAN_NAME + '_sites']))
+    cg.set_input(fixed_batch())
+    paths['cgan step'] = record_step_sites(cg.optimize_parameters)
+    del cg
+    seg = create_model(TrainOptions().parse(SEG_ARCH + SEG_TRAIN + ON_CARD + [
+        '--name', SEG_NAME + '_sites']))
+    seg.set_input(fixed_batch())
+    paths['segmentation step'] = record_step_sites(seg.optimize_parameters)
+    paths['segmentation forward'] = record_step_sites(
+        lambda: seg.forward(val_mode=True))
+    del seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    for path, per in (('cgan step', CGAN_PER_STEP),
+                      ('segmentation step', SEG_PER_STEP),
+                      ('segmentation forward', SEG_PER_FORWARD)):
+        b = paths[path]
+        got = {'conv4s2': sum(b['conv4s2'].values()),
+               'convt4s2': sum(b['ConvT4s2'].values())
+               + sum(b['conv4s2_dx'].values()),
+               'instance_norm_act': sum(b['InstanceNormAct'].values()),
+               'instance_norm_bwd': sum(b['instance_norm_bwd'].values())}
+        want = dict({k: 0 for k in got}, **per)
+        check(got == want, '%s: recorded calls %s, expected %s'
+              % (path, got, want))
+        print('  %-20s calls %s' % (path, got))
+    dsgan = {'conv4s2': dsgan_books['conv4s2'],
+             'ConvT4s2': dsgan_books['ConvT4s2'],
+             'conv4s2_dx': dsgan_books['conv4s2_dx'],
+             'InstanceNormAct': dsgan_books['InstanceNormAct'],
+             'instance_norm_bwd': dsgan_books['instance_norm_bwd']}
+    new = {k: collections.Counter() for k in NEW_KINDS}
+    for b in paths.values():
+        for kind in NEW_KINDS:
+            for key, c in b[kind].items():
+                if key not in dsgan[kind]:
+                    new[kind][key] += c
+    for (xs, ws, has_b), c in sorted(new['conv4s2'].items()):
+        check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
+        print('  new site conv4s2      %d->%d @%dx%d%s x%d' % (
+            xs[1], ws[0], xs[2], xs[3], ' +b' if has_b else '', c))
+    for (xs, ws, has_b), c in sorted(new['ConvT4s2'].items()):
+        check_convt4s2_plan(xs[0], xs[1], ws[1], xs[2], xs[3])
+        print('  new site convt4s2     %d->%d @%dx%d%s x%d' % (
+            xs[1], ws[1], xs[2], xs[3], ' +b' if has_b else '', c))
+    for (gs, ws), c in sorted(new['conv4s2_dx'].items()):
+        check_convt4s2_plan(gs[0], gs[1], ws[1], gs[2], gs[3])
+        print('  new site convt4s2 dx  %d->%d @%dx%d x%d' % (
+            gs[1], ws[1], gs[2], gs[3], c))
+    for kind in ('InstanceNormAct', 'instance_norm_bwd'):
+        for (xs, slope), c in sorted(new[kind].items(), key=_in_key):
+            print('  new site %-17s %d @%dx%d slope %s x%d' % (
+                kind, xs[1], xs[2], xs[3], slope, c))
+    for shape in sorted({xs for kind in ('InstanceNormAct',
+                                         'instance_norm_bwd')
+                         for xs, _ in new[kind]}):
+        print('  IN plan %-20s %s' % (shape, _plan_text(
+            check_in_plan(*shape))))
+    books = {'conv3x3_dw': {}, 'conv3x3_dx': {}, 'conv4s2': new['conv4s2'],
+             'convt4s2_f2': new['ConvT4s2'], 'conv4s2_dx': new['conv4s2_dx'],
+             'InstanceNormAct': new['InstanceNormAct'],
+             'instance_norm_bwd': new['instance_norm_bwd']}
+    return books, paths
+
+
+def new_site_cases(books):
+    """train_cases at the new sites, the generators' transposed-conv
+    forwards named convt4s2_fwd."""
+    return [c._replace(kernel='convt4s2_fwd') if c.kernel == 'convt4s2_f2'
+            else c for c in train_cases(books)]
+
+
+def cgan_train(dtype, steps):
+    """The cgan step's recipe command through the train entry point."""
+    name = '%s_%s' % (CGAN_NAME, dtype)
+    return run_train(
+        CGAN_FLAGS + ON_CARD + _epoch_flags(name, dtype, steps)
+        + ['--display_freq', str(steps), '--save_epoch_freq', '1'],
+        name, steps, CGAN_PER_STEP, ('G', 'D_0', 'D_1'))
+
+
+CGAN_CHUNK, CGAN_CHUNK_EPOCHS = 10, 2
+
+
+def cgan_chunked_train():
+    """The train entry point with --steps_per_dispatch 10, bf16, two epochs
+    of the 8 synthetic images, no print or save inside: one chunk an epoch
+    (flushed at its last batch), the first two steps eager, then the
+    capture and replays.  The wrappers see the eager steps and the capture,
+    no replay: 3 steps' launches.  The second chunk is all replays: its wall
+    time a step."""
+    name = CGAN_NAME + '_chunked'
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        r = trainer.main(CGAN_FLAGS + ON_CARD + [
+            '--compute_dtype', 'bfloat16', '--name', name,
+            '--niter', str(CGAN_CHUNK_EPOCHS), '--niter_decay', '0',
+            '--max_dataset_size', str(TRAIN_IMAGES), '--print_freq', '100',
+            '--display_freq', '100', '--save_epoch_freq', '100',
+            '--steps_per_dispatch', str(CGAN_CHUNK)])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check(r['steps'] == CGAN_CHUNK_EPOCHS * TRAIN_IMAGES
+          and r['chunks'] == [TRAIN_IMAGES] * CGAN_CHUNK_EPOCHS,
+          'cgan chunked: %d steps in chunks %s' % (r['steps'], r['chunks']))
+    want = expected(CGAN_PER_STEP, CAPTURE_AFTER + 1)
+    check(counts == want, 'cgan chunked: launches %s, expected %s (the eager '
+          'steps and the capture)' % (counts, want))
+    replay_ms = 1e3 * r['step_seconds'][-1] / TRAIN_IMAGES
+    print('  chunks %s, wall a chunk %s ms, %.2f ms a replayed step; wrapper '
+          'launches %s' % (r['chunks'], ['%.1f' % (1e3 * t)
+                                        for t in r['step_seconds']],
+                           replay_ms, counts))
+    return dict(chunks=r['chunks'], step_seconds=r['step_seconds'],
+                replay_ms_per_step=replay_ms, launches=counts)
+
+
+def phase_cgan_sampler(trained, samples=4):
+    """The conditional sampler entry point on the trained cgan run's G over
+    the segmentation set's test images (bf16): launch counts, finite
+    outputs, real_A and fake_B written per input, images/s."""
+    d = os.path.join(RESULTS_DIR, 'cgan_sampler')
+    K.reset_launch_counts()
+    r = sampler.main(CGAN_SAMPLER + ON_CARD + [
+        '--name', trained, '--how_many', str(samples), '--results_dir', d])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check(counts == expected(CGAN_PER_SAMPLE, samples),
+          'cgan sampler: launches %s, expected %s' % (
+              counts, expected(CGAN_PER_SAMPLE, samples)))
+    check(r['samples'] == samples and r['nonfinite'] == 0,
+          'cgan sampler: %d samples, %d non-finite' % (r['samples'],
+                                                       r['nonfinite']))
+    names = sorted(os.listdir(os.path.join(r['web_dir'], 'images')))
+    want = sorted('%03d_%s.png' % (i, v) for i in range(samples)
+                  for v in ('real_A', 'fake_B'))
+    check(names == want, 'cgan sampler: images %s' % names)
+    out = dict(samples=samples, launches=counts,
+               images_per_second=samples / r['loop_seconds'],
+               drawing_images_per_second=samples / r['sample_seconds'],
+               loop_seconds=r['loop_seconds'],
+               sample_seconds=r['sample_seconds'])
+    print('  %d samples in %.3f s = %.3f images/s (drawing alone %.3f '
+          'images/s); launches %s' % (
+              samples, r['loop_seconds'], out['images_per_second'],
+              out['drawing_images_per_second'], counts))
+    return out
+
+
+def _cgan_draws(model):
+    """Every GaussianNoise of the cgan's G draws from one CPU generator of
+    seed 13, on the model's device: the same draws, call by call, on every
+    model."""
+    gen = torch.Generator().manual_seed(13)
+
+    def draw(shape, dtype, device):
+        return torch.randn(shape, generator=gen).to(device=device,
+                                                     dtype=dtype)
+    for m in model.netG.modules():
+        if isinstance(m, tnn.GaussianNoise):
+            m.draw = draw
+
+
+def _cgan_step_in_parts(model, d_from=None):
+    """One cgan iteration's first G update: the recorded forward, the D
+    update, then (with ``d_from``, the D bank taking d_from's parameters)
+    the G update.  Returns the four loss terms; the D update's gradients
+    stay in the D bank's .grad."""
+    taps = model._record()
+    d_real, d_fake = model.update_D(taps)
+    if d_from is not None:
+        with torch.no_grad():
+            for p, q in zip(model.netD.parameters(),
+                            d_from.netD.parameters()):
+                p.copy_(q)
+    total, l1 = model.update_G(taps)
+    return {'D_real': float(d_real), 'D_fake': float(d_fake),
+            'G_GAN': float(total), 'G_L1': float(l1)}
+
+
+CGAN_RECIPE = Recipe(CGAN_FLAGS, CGAN_NAME, ['--pool_size', '0',
+                                             '--no_dropout'],
+                     _cgan_draws, _cgan_step_in_parts)
+
+
+def phase_cgan_reference_step():
+    """One f32 cgan iteration (its D update and first G update) at 512 px on
+    the card through the kernels and on the CPU through the plain versions,
+    as phase_reference_step holds the DSGAN step: same weights, batch and
+    Gaussian draws, no pool, no dropout; each loss term within 1e-3
+    relative, each gradient within the larger of 5e-2 and twice its noise
+    floor relative in L2."""
+    return _reference_step((), '_ref', 'float32', loss_tol=1e-3,
+                           grad_tol=5e-2, floor_factor=2, card_flags=[],
+                           recipe=CGAN_RECIPE)
+
+
+def phase_cgan_chunk_equals_eager(dtype='bfloat16'):
+    """CHUNK_STEPS cgan steps (pools, dropout and the Gaussian noise on),
+    train_chunk against eager steps under deterministic algorithms: every
+    parameter, Adam moment and step, the pool's images and the last losses
+    bitwise equal (_chunk_runs_deterministic)."""
+    det = _chunk_runs_deterministic(dtype, make=lambda dt, label: create_model(
+        TrainOptions().parse(CGAN_FLAGS + ON_CARD + [
+            '--compute_dtype', dt, '--name',
+            '%s_chunk_%s' % (CGAN_NAME, label)])))
+    spread, chunked = det['eager_spread'], det['chunked']
+    check(spread['differ'] == 0 and not any(spread['losses'].values()),
+          'deterministic eager cgan %s runs differ (%s)' % (dtype,
+                                                             spread['name']))
+    check(chunked['differ'] == 0 and not any(chunked['losses'].values()),
+          'chunked cgan %s differs from eager under deterministic algorithms '
+          '(%d tensors, worst %s, losses %s)' % (
+              dtype, chunked['differ'], chunked['name'], chunked['losses']))
+    return dict(det, dtype=dtype, steps=CHUNK_STEPS)
+
+
+CGAN_BENCH_ARMS = (('cgan kernels bf16', []),
+                   ('cgan no_pallas bf16', ['--no_pallas']))
+SEG_BENCH_ARMS = (('segmentation kernels f32', []),
+                  ('segmentation no_pallas f32', ['--no_pallas']))
+
+
+def phase_cgan_bench():
+    """supervised_gan_tpu_torch.bench_extra's cgan_pix2pix_512 on each
+    route."""
+    return _bench_arms(CGAN_BENCH_ARMS, lambda flags, **kw: bench_extra.run(
+        'cgan_pix2pix_512', flags, **kw), CGAN_PER_STEP)
+
+
+def phase_seg_bench():
+    """The segmentation step (SEG_ARCH, f32) through bench.main on each
+    route: per step and chunked rates, device time and busy share."""
+    return _bench_arms(SEG_BENCH_ARMS, lambda flags, **kw: bench.main(
+        flags, base=SEG_ARCH + SEG_BENCH, metric_name='segmentation_unet128',
+        **kw), SEG_PER_STEP)
+
+
+def _accs_in_range(accs, what):
+    check(set(accs) == {'RandScore', 'meanIU'} and all(
+        np.isfinite(v) and 0 <= v <= 1 for v in accs.values()),
+        '%s: accuracies %s' % (what, accs))
+
+
+def phase_segmentation():
+    """train_ss at SEG_ARCH for one epoch of the 4 training images with
+    validation on the 2 val images and the best meanIU checkpoint, then
+    test_ss on it over the 4 test images: launch counts (4 steps and 2
+    forwards; 4 forwards), RandScore and meanIU finite and within [0, 1],
+    the cross entropy finite; the train step's median wall time (a step up
+    to its metrics on the host) and test_ss's images/s."""
+    K.reset_launch_counts()
+    r = train_ss.main(SEG_ARCH + SEG_TRAIN + ON_CARD + [
+        '--niter', '1', '--niter_decay', '0', '--print_freq', '1',
+        '--display_freq', '100', '--save_epoch_freq', '1',
+        '--best_metric', 'meanIU'])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    n_train, n_val = SEG_SPLITS[0][1], SEG_SPLITS[1][1]
+    want = expected(_plus(*[SEG_PER_STEP] * n_train
+                          + [SEG_PER_FORWARD] * n_val), 1)
+    check(counts == want, 'train_ss: launches %s, expected %s'
+          % (counts, want))
+    check(r['steps'] == n_train and len(r['val_accs']) == 1,
+          'train_ss: %d steps, val %s' % (r['steps'], r['val_accs']))
+    _accs_in_range(r['val_accs'][0], 'train_ss val')
+    run_dir = os.path.join(CKPT_DIR, SEG_NAME)
+    check({'best_net_G.pth', 'latest_net_G.pth', '1_net_G.pth'}
+          <= set(os.listdir(run_dir)), 'train_ss: checkpoints missing')
+    step_ms = [1e3 * t for t in r['step_seconds']]
+    K.reset_launch_counts()
+    t = test_ss.main(SEG_ARCH + ON_CARD + [
+        '--which_epoch', 'best', '--results_dir',
+        os.path.join(RESULTS_DIR, 'seg_test')])
+    torch.cuda.synchronize()
+    test_counts = K.launch_counts()
+    n_test = SEG_SPLITS[2][1]
+    check(test_counts == expected(SEG_PER_FORWARD, n_test),
+          'test_ss: launches %s, expected %s' % (
+              test_counts, expected(SEG_PER_FORWARD, n_test)))
+    check(t['images'] == n_test and np.isfinite(t['ce_mean']),
+          'test_ss: %d images, cross entropy %s' % (t['images'],
+                                                     t['ce_mean']))
+    _accs_in_range(t['accs'], 'test_ss')
+    out = dict(train_steps=r['steps'], train_step_ms=step_ms,
+               median_train_step_ms=statistics.median(step_ms[1:]),
+               val_accs=r['val_accs'], best=r['best'], train_launches=counts,
+               test_images=t['images'], test_accs=t['accs'],
+               ce_mean=t['ce_mean'], ce_std=t['ce_std'],
+               test_images_per_second=n_test / t['test_seconds'],
+               test_loop_images_per_second=n_test / t['loop_seconds'],
+               test_launches=test_counts)
+    print('  train_ss: %d steps, first %.1f ms, median of the rest %.1f ms; '
+          'val %s; test_ss: %d images, %.3f images/s (%.3f with the images '
+          'written), %s, cross entropy %.4f +- %.4f' % (
+              r['steps'], step_ms[0], out['median_train_step_ms'],
+              r['val_accs'][0], n_test, out['test_images_per_second'],
+              out['test_loop_images_per_second'], t['accs'], t['ce_mean'],
+              t['ce_std']))
+    return out
 
 
 def main():
@@ -2892,6 +3437,35 @@ def main():
           'README step), card vs CPU plain, both in bf16')
     ref_step_bf16 = phase_reference_step(gate=True, dtype='bfloat16')
 
+    print('== SGAN step 2 (cgan) and the segmentation gate: their kernel '
+          'sites, and those the DSGAN step does not have')
+    t_new = time.time()
+    write_seg_set()
+    new_books, new_paths = phase_new_sites(books)
+    print('== kernels vs plain versions at the new sites')
+    per_site_new, agg_new = run_cases(new_site_cases(new_books))
+    print('== cgan training: tools/bench_extra.py:54-68, 512 px, bf16')
+    cgan16 = cgan_train('bfloat16', TRAIN_IMAGES)
+    print('== cgan training with --steps_per_dispatch %d' % CGAN_CHUNK)
+    cgan_chunked = cgan_chunked_train()
+    print('== cgan: chunked == eager, %d steps, bf16, deterministic'
+          % CHUNK_STEPS)
+    cgan_chunk_eq = phase_cgan_chunk_equals_eager()
+    print('== reference: one f32 cgan iteration at 512 px, card vs CPU plain')
+    cgan_ref = phase_cgan_reference_step()
+    print('== the conditional sampler (--model cgan), 512 px, bf16')
+    cgan_sampler = phase_cgan_sampler('%s_bfloat16' % CGAN_NAME)
+    print('== bench_extra cgan_pix2pix_512: kernels and --no_pallas, bf16')
+    cgan_bench = phase_cgan_bench()
+    print('== segmentation: train_ss, then test_ss (quality_eval.py:94-104, '
+          '512 px)')
+    segmentation = phase_segmentation()
+    print('== the segmentation step as bench arms: kernels and --no_pallas, '
+          'f32')
+    seg_bench = phase_seg_bench()
+    new_seconds = time.time() - t_new
+    print('SGAN step 2 and segmentation phases: %.1f s' % new_seconds)
+
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
                  'instance_norm_bwd', 'conv4s2', 'conv3x3_in_stats',
@@ -2945,7 +3519,23 @@ def main():
                   stage1=dict(bf16=stage1_16, f32=stage1_32,
                               sampler_loop_seconds=r_s1['loop_seconds'],
                               sampler_launches=counts_s1),
-                  readme=readme, seconds=time.time() - t_start)
+                  readme=readme,
+                  cgan=dict(launches_per_step=CGAN_PER_STEP,
+                            launches_per_sample=CGAN_PER_SAMPLE,
+                            train=cgan16, chunked=cgan_chunked,
+                            chunk_equals_eager=cgan_chunk_eq,
+                            reference_step=cgan_ref, sampler=cgan_sampler,
+                            bench=cgan_bench),
+                  segmentation=dict(segmentation, bench=seg_bench,
+                                    launches_per_step=SEG_PER_STEP,
+                                    launches_per_forward=SEG_PER_FORWARD),
+                  new_sites=per_site_new, new_site_sums=agg_new,
+                  new_phases_seconds=new_seconds,
+                  new_site_books={
+                      path: {k: {repr(s_): c for s_, c in v.items()}
+                             for k, v in b.items()}
+                      for path, b in new_paths.items()},
+                  seconds=time.time() - t_start)
     with open(os.path.join(OUT_DIR, 'chip_smoke.json'), 'w') as f:
         json.dump(detail, f, indent=1)
     print('total %.1f s' % (time.time() - t_start))

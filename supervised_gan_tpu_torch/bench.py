@@ -53,7 +53,9 @@ TPU gate names.
 It runs on ``cuda:<first --gpu_ids>`` and never falls back to the CPU;
 under ``--gpu_ids -1`` (``backend`` "cpu") every device field is null.  The
 ``main`` parameters shorten a run for tests; the command line always runs
-the constants below.
+the constants below.  ``main`` takes another configuration's flags as
+``base`` (bench_extra.py: the stage-1 and SGAN step-2 configurations),
+with its name for the metric.
 """
 
 import json
@@ -120,17 +122,19 @@ def card(index):
 
 
 def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
-         trace_steps=TRACE_STEPS, chunk=CHUNK):
+         trace_steps=TRACE_STEPS, chunk=CHUNK, base=DSGAN_ARGS,
+         metric_name='dsgan_twostage_cycle', record_extra=None):
     """Run the benchmark; returns the record it prints.  ``args``: the
-    flags after DSGAN_ARGS (default: the command line's); window_steps must
-    be a multiple of chunk."""
+    flags after ``base`` (default: the command line's); ``metric_name``
+    goes into the metric and ``record_extra``'s keys into the record;
+    window_steps must be a multiple of chunk."""
     if window_steps % chunk:
         raise ValueError('bench: %d window steps are not chunks of %d'
                          % (window_steps, chunk))
     disable_tf32()
     t_setup0 = time.perf_counter()
     opt = TrainOptions().parse(
-        DSGAN_ARGS + (sys.argv[1:] if args is None else list(args)))
+        list(base) + (sys.argv[1:] if args is None else list(args)))
     model = create_model(opt)
     dev = model.device
     cuda = dev.type == 'cuda'
@@ -211,8 +215,8 @@ def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
 
     errors = model.get_current_errors()
     rec = {
-        'metric': 'vnc%d_dsgan_twostage_cycle_train_images_per_sec_per_chip'
-                  % opt.fineSize,
+        'metric': 'vnc%d_%s_train_images_per_sec_per_chip'
+                  % (opt.fineSize, metric_name),
         'value': value,
         'unit': 'images/sec',
         'dispatch_mode': mode,
@@ -256,6 +260,7 @@ def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
                      'matmul': torch.backends.cuda.matmul.allow_tf32},
         },
     }
+    rec.update(record_extra or {})
     print(json.dumps(rec))
     return rec
 

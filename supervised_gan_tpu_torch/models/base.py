@@ -142,6 +142,9 @@ class BaseModel:
         for name, t in self.host_inputs(input).items():
             setattr(self, name, self.to_device(t))
 
+    def get_image_paths(self):
+        return self.image_paths
+
     def step_inputs(self):
         return {name: getattr(self, name) for name in self.STEP_INPUTS}
 
@@ -187,6 +190,12 @@ class BaseModel:
         host copy, no .item(), no branch on a device value (a captured CUDA
         graph holds it)."""
         raise NotImplementedError
+
+    def _step(self, optimizer, loss):
+        """One optimizer update on ``loss``'s gradients."""
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
 
     def optimize_parameters(self):
         """One training iteration on the current input."""
@@ -262,6 +271,7 @@ class BaseModel:
             not g('no_dropout'), n_layers_G=g('n_layers_G'),
             use_fcn=g('noiseSize') != 1, noise_nc=g('noise_nc'),
             add_gaussian_noise=o.add_gaussian_noise,
+            gaussian_sigma=o.gaussian_sigma,
             upsample_mode=g('upsample_mode'),
             n_layers_CRN_block=g('n_layers_CRN_block'),
             share_label_weights=not g('no_share_label_block_weights'),

@@ -1,0 +1,80 @@
+"""What the recipes share (counterpart of supervised_gan_tpu/models/
+common.py): the cGAN pair and the WeightedL1 weight map (:78 and :92
+there), the alternating update schedule of the one-G recipes (fcgan,
+cgan, segmentation; ``build_gan_train_step`` there) and the D update on
+(conditioning, generated) pairs that cgan and segmentation share."""
+
+import torch
+
+from ..nn.generators import CascadedRefinementNetwork
+from ..nn.losses import gan_loss
+
+
+def g_apply(net, x, noise, dtype, activation='tanh'):
+    """A generator on the label x in ``dtype``: the CRN takes the noise, the
+    other generators ignore it (models/common.py g_apply there)."""
+    if isinstance(net, CascadedRefinementNetwork):
+        return net(x.to(dtype), noise.to(dtype), activation=activation)
+    return net(x.to(dtype), activation=activation)
+
+
+def cat_channels(a, b):
+    """(conditioning, generated) pair for a cGAN D input, the conditioning
+    side cast to the generated side's dtype (models/common.py:78)."""
+    return torch.cat([a.to(b.dtype), b], 1)
+
+
+def l1_weight_map(real_A, weights):
+    """Per-pixel WeightedL1 weight 1 + sum_i A_i (w_i - 1) on the [0, 1]-
+    rescaled label channels, or None (models/common.py:92)."""
+    if weights is None:
+        return None
+    a = (real_A.detach() + 1) / 2
+    w = torch.ones_like(a[:, :1])
+    for i, wi in enumerate(weights):
+        w = w + a[:, i:i + 1] * (wi - 1.0)
+    return w
+
+
+def alternate_updates(record, n_update_D, update_D, n_update_G, update_G):
+    """One iteration: the recorded forward, then n_update_D D updates and
+    n_update_G G updates on its taps, the forward recorded again (fresh
+    noise) after every update of a kind repeated more than once, the last
+    one included (``train_step`` of build_gan_train_step, models/common.py
+    there).  The last recorded
+    forward is only shown, so it records no graph.  Returns (taps, the
+    last D update's result, the last G update's)."""
+    taps = record()
+    d = g = None
+    for _ in range(n_update_D):
+        d = update_D(taps)
+        if n_update_D > 1:
+            taps = record()
+    for k in range(n_update_G):
+        g = update_G(taps)
+        if n_update_G > 1:
+            with torch.set_grad_enabled(k + 1 < n_update_G):
+                taps = record()
+    return taps, d, g
+
+
+class PairDiscriminator:
+    """The D bank ``netD`` (Adam ``optD``) of a conditional recipe: it judges
+    cat(input_A, B), or B alone with --no_cgan; its fakes (``taps['fake_B']``)
+    go through the ``fake`` pool."""
+
+    def pair(self, b):
+        return b if self.opt.no_cgan else cat_channels(self.input_A, b)
+
+    def update_D(self, taps):
+        """One D update, 0.5 (fake + real), on the pooled fake pair and the
+        real pair; returns the (real, fake) loss sums."""
+        lsgan = not self.opt.no_lsgan
+        fake = self.query_pool('fake', self.pair(taps['fake_B']).detach())
+        real = self.pair(self.input_B)
+        loss_fake = sum(gan_loss(o, False, lsgan)
+                        for o in self.bank_apply(self.netD, fake))
+        loss_real = sum(gan_loss(o, True, lsgan)
+                        for o in self.bank_apply(self.netD, real))
+        self._step(self.optD, (loss_fake + loss_real) * 0.5)
+        return loss_real.detach(), loss_fake.detach()

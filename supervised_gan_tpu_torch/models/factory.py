@@ -1,9 +1,8 @@
 """Model recipe factory: the string dispatch of supervised_gan_tpu/models/
 factory.py, for the recipes ported so far."""
 
-_NOT_YET = ('cgan', 'cgan2', 'cgan_cycle', 'cgan2_cycle',
-            'cgan_causal', 'twostage', 'twostage_factd', 'test',
-            'segmentation', 'segmentation_cycle')
+_NOT_YET = ('cgan2', 'cgan_cycle', 'cgan2_cycle', 'cgan_causal',
+            'twostage', 'twostage_factd', 'test', 'segmentation_cycle')
 
 
 def create_model(opt):
@@ -14,6 +13,12 @@ def create_model(opt):
     elif opt.model == 'fcgan':
         from .fcgan import FCGANModel
         model = FCGANModel()
+    elif opt.model == 'cgan':
+        from .cgan import CGANModel
+        model = CGANModel()
+    elif opt.model == 'segmentation':
+        from .segmentation import SegmentationModel
+        model = SegmentationModel()
     elif opt.model in _NOT_YET:
         raise NotImplementedError('Model [%s] not yet ported' % opt.model)
     else:

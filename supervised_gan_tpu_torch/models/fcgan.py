@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .base import BaseModel, adam, parse_which_channel, set_lr
+from .common import alternate_updates
 from .pools import init_pool
 from .. import nn
 from ..nn.losses import gan_loss
@@ -58,7 +59,7 @@ class FCGANModel(BaseModel):
                 self.load_bank(self.netD, 'D_%d', opt.which_epoch)
         for net in self.nets().values():
             net.to(self.device)
-            nn.set_dropout_generator(net, self.noise_generator)
+            nn.set_noise_generator(net, self.noise_generator)
 
         if self.isTrain:
             self.old_lr = opt.lr
@@ -113,11 +114,6 @@ class FCGANModel(BaseModel):
     def _generate(self, noise):
         return self.netG(noise.to(self.compute_dtype))
 
-    def _step(self, optimizer, loss):
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-
     def update_D(self, fake):
         """One D update on the pooled fake and the real batch; returns the
         (real, fake) loss sums."""
@@ -152,17 +148,9 @@ class FCGANModel(BaseModel):
 
     def train_step(self):
         o = self.opt
-        fake = self._generate(self.draw_noise())
-        for _ in range(o.n_update_D):
-            d_real, d_fake = self.update_D(fake)
-            if o.n_update_D > 1:
-                fake = self._generate(self.draw_noise())
-        for k in range(o.n_update_G):
-            g_gan = self.update_G(fake)
-            if o.n_update_G > 1:
-                # the last recomputed fake is only shown, not trained on
-                with torch.set_grad_enabled(k + 1 < o.n_update_G):
-                    fake = self._generate(self.draw_noise())
+        fake, (d_real, d_fake), g_gan = alternate_updates(
+            lambda: self._generate(self.draw_noise()), o.n_update_D,
+            self.update_D, o.n_update_G, self.update_G)
         self._metrics = {'G_GAN': g_gan, 'D_real': d_real, 'D_fake': d_fake}
         self.fake = fake.detach()
         self.real = self.input

@@ -78,7 +78,7 @@ class TwoGroupModel(BaseModel):
             in_nc, out_nc, g('nff'), g('which_model_netF'), o.norm,
             not g('no_dropout'), n_layers_G=g('n_layers_F'), use_fcn=False,
             noise_nc=g('noise_nc'), add_gaussian_noise=o.add_gaussian_noise,
-            upsample_mode=g('upsample_mode'),
+            gaussian_sigma=o.gaussian_sigma, upsample_mode=g('upsample_mode'),
             n_layers_CRN_block=g('n_layers_CRN_block'),
             share_label_weights=not g('no_share_label_block_weights'),
             use_residual=bool(g('use_residual')),

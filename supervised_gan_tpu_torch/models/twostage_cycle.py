@@ -26,6 +26,7 @@ import torch
 
 from .pools import init_pool
 from .base import adam, set_lr
+from .common import cat_channels, l1_weight_map
 from .two_group import TwoGroupModel
 from .. import nn
 from ..nn.losses import bce_loss, gan_loss, weighted_l1_loss
@@ -33,24 +34,6 @@ from ..utils.images import tensor2im
 
 METRICS_ORDER = ('G2_GAN', 'G2_real_cycle', 'G2_fake_cycle', 'D2', 'G1_GAN',
                  'D1')
-
-
-def cat_channels(a, b):
-    """(conditioning, generated) pair for a cGAN D input, the conditioning
-    side cast to the generated side's dtype (models/common.py:78)."""
-    return torch.cat([a.to(b.dtype), b], 1)
-
-
-def l1_weight_map(real_A, weights):
-    """Per-pixel WeightedL1 weight 1 + sum_i A_i (w_i - 1) on the [0, 1]-
-    rescaled label channels, or None (models/common.py:92)."""
-    if weights is None:
-        return None
-    a = (real_A.detach() + 1) / 2
-    w = torch.ones_like(a[:, :1])
-    for i, wi in enumerate(weights):
-        w = w + a[:, i:i + 1] * (wi - 1.0)
-    return w
 
 
 def _unported_training_flags(opt):
@@ -92,7 +75,7 @@ class TwoStageCycleModel(TwoGroupModel):
                 self.load_bank(self.netD2, 'D2_%d', opt.which_epoch)
         for net in self.nets().values():
             net.to(self.device)
-            nn.set_dropout_generator(net, self.noise_generator)
+            nn.set_noise_generator(net, self.noise_generator)
 
         if self.isTrain:
             self.optG = adam([(self.netG1.parameters(), self.old_lr1),
@@ -166,7 +149,7 @@ class TwoStageCycleModel(TwoGroupModel):
             o.input_nc, o.output_nc, o.ngf2, o.which_model_netG2, o.norm,
             not o.no_dropout2, n_layers_G=o.n_layers_G2, use_fcn=False,
             noise_nc=o.noise_nc2, add_gaussian_noise=o.add_gaussian_noise,
-            upsample_mode=o.upsample_mode2,
+            gaussian_sigma=o.gaussian_sigma, upsample_mode=o.upsample_mode2,
             n_layers_CRN_block=o.n_layers_CRN_block2,
             share_label_weights=not o.no_share_label_block_weights2,
             use_residual=o.use_residual2, generator=self.init_generator)
@@ -223,11 +206,6 @@ class TwoStageCycleModel(TwoGroupModel):
 
     def _record(self):
         return self.forward_taps(self.draw_noises())
-
-    def _step(self, optimizer, loss):
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
 
     def update_D1(self, taps):
         lsgan = not self.opt.no_lsgan1

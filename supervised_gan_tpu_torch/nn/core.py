@@ -29,8 +29,9 @@ region (nn/core.py:149-176 there).  Its conv bias is passed in, not skipped: the
 JAX region takes it, so it gets a gradient (sum of the norm's input
 cotangent, rounding noise) and Adam moves it.
 
-Dropout draws its masks from a ``torch.Generator`` that the model assigns
-(``set_dropout_generator``), the port's counterpart of the JAX ``Ctx`` key.
+Dropout draws its masks, and GaussianNoise its injected noise, from a
+``torch.Generator`` that the model assigns (``set_noise_generator``), the
+port's counterpart of the JAX ``Ctx`` key.
 """
 
 import math
@@ -145,16 +146,39 @@ class Dropout(nn.Module):
             return x
         if self.generator is None:
             raise RuntimeError('Dropout needs a generator: call '
-                               'set_dropout_generator on its network')
+                               'set_noise_generator on its network')
         keep = 1.0 - self.p
         mask = torch.rand(x.shape, generator=self.generator,
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def set_dropout_generator(net, generator):
+class GaussianNoise(nn.Module):
+    """y + sigma * N(0, 1), drawn in y's dtype from ``self.generator`` (on
+    y's device): the injected noise of the unet levels and the CRN upsample
+    blocks (--add_gaussian_noise, --gaussian_sigma).  ``draw`` is the one
+    place a draw is made."""
+
+    def __init__(self, sigma=0.1):
+        super().__init__()
+        self.sigma = sigma
+        self.generator = None
+
+    def draw(self, shape, dtype, device):
+        if self.generator is None:
+            raise RuntimeError('GaussianNoise needs a generator: call '
+                               'set_noise_generator on its network')
+        return torch.randn(shape, generator=self.generator, dtype=dtype,
+                           device=device)
+
+    def forward(self, y):
+        return y + self.sigma * self.draw(y.shape, y.dtype, y.device)
+
+
+def set_noise_generator(net, generator):
+    """Every Dropout and GaussianNoise of ``net`` draws from ``generator``."""
     for m in net.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, GaussianNoise)):
             m.generator = generator
 
 

@@ -20,9 +20,10 @@ def get_norm_layer(norm_type='instance'):
 
 def define_G(input_nc, output_nc, ngf, which_model_netG, norm='batch',
              use_dropout=False, n_layers_G=5, use_fcn=False, noise_nc=0,
-             add_gaussian_noise=False, upsample_mode='convt',
-             share_label_weights=True, n_layers_CRN_block=1, use_residual=False,
-             n_layers_G_skip=-1, generator=None):
+             add_gaussian_noise=False, gaussian_sigma=0.1,
+             upsample_mode='convt', share_label_weights=True,
+             n_layers_CRN_block=1, use_residual=False, n_layers_G_skip=-1,
+             generator=None):
     """Build a generator; with ``generator`` (a CPU torch.Generator) its
     weights are initialized from it, else they are left uninitialized for
     a checkpoint to fill."""
@@ -32,13 +33,14 @@ def define_G(input_nc, output_nc, ngf, which_model_netG, norm='batch',
             input_nc, output_nc, noise_nc, ngf=ngf, n_layers=n_layers_G,
             norm_layer=norm_layer, upsample_mode=upsample_mode,
             add_gaussian_noise=add_gaussian_noise,
+            gaussian_sigma=gaussian_sigma,
             share_label_weights=share_label_weights,
             n_layers_block=n_layers_CRN_block)
     elif which_model_netG in ('unet_128', 'unet_256'):
         net = G.UnetGenerator(
             input_nc, output_nc, 7 if which_model_netG == 'unet_128' else 8,
             ngf, norm_layer, use_dropout, use_residual, add_gaussian_noise,
-            n_layers_G_skip)
+            gaussian_sigma, n_layers_G_skip)
     elif which_model_netG in ('fcgan', 'deconv'):
         net = G.FCGANGenerator(noise_nc, input_nc, ngf, n_layers=n_layers_G,
                                use_dropout=use_dropout, use_fcn=use_fcn)

@@ -5,23 +5,30 @@ Counterparts of supervised_gan_tpu/nn/generators.py: `FCGANGenerator`
 pixel output only) and the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
 `CascadedRefinementNetwork`, :265-386).  Structure, channel arithmetic,
 layer order and attribute names match, so parameter counts and state_dict
-keys line up.  Injected Gaussian noise is not ported yet and raises.
+keys line up.  Injected Gaussian noise (--add_gaussian_noise) is a
+GaussianNoise module beside a block's ``model``, with no parameters, so the
+keys are the same with it or without it.
 """
 
 import torch
 from torch import nn
 
-from .core import (BatchNorm2d, Conv2d, ConvTranspose2d, Dropout, LeakyReLU,
-                   ReLU, Sequential, Upsample)
+from .core import (BatchNorm2d, Conv2d, ConvTranspose2d, Dropout,
+                   GaussianNoise, LeakyReLU, ReLU, Sequential, Upsample)
 from ..ops import avg_pool
 
 
 def activate(y, activation='tanh'):
+    """The output activation; softmax over the channels (dim 1 of NCHW)."""
     if activation == 'tanh':
         return torch.tanh(y)
+    if activation == 'sigmoid':
+        return torch.sigmoid(y)
+    if activation == 'softmax':
+        return torch.softmax(y, dim=1)
     if activation in (None, 'none'):
         return y
-    raise NotImplementedError('activation [%s] not yet ported' % (activation,))
+    raise ValueError('unknown activation %r' % (activation,))
 
 
 class FCGANGenerator(nn.Module):
@@ -56,17 +63,17 @@ class FCGANGenerator(nn.Module):
 
 
 class UnetSkipConnectionBlock(nn.Module):
-    """One U-Net level: y = model(x), returned as cat([y, x]) when this level
-    keeps its skip connection (reference models/networks.py:373-419)."""
+    """One U-Net level: y = model(x), plus sigma N(0, 1) with
+    add_gaussian_noise, returned as cat([y, x]) when this level keeps its
+    skip connection (reference models/networks.py:373-419)."""
 
     def __init__(self, outer_nc, inner_nc, submodule=None, innermost=False,
                  norm_layer=BatchNorm2d, use_dropout=False,
-                 add_gaussian_noise=False, add_skip_this=True,
-                 add_skip_sub=True):
+                 add_gaussian_noise=False, gaussian_sigma=0.1,
+                 add_skip_this=True, add_skip_sub=True):
         super().__init__()
-        if add_gaussian_noise:
-            raise NotImplementedError('unet --add_gaussian_noise not yet '
-                                      'ported')
+        self.gauss = (GaussianNoise(gaussian_sigma) if add_gaussian_noise
+                      else None)
         self.add_skip_this = add_skip_this
         downconv = Conv2d(outer_nc, inner_nc, 4, 2, 1)
         if innermost:
@@ -85,23 +92,27 @@ class UnetSkipConnectionBlock(nn.Module):
 
     def forward(self, x):
         y = self.model(x)
+        if self.gauss is not None:
+            y = self.gauss(y)
         return torch.cat([y, x], 1) if self.add_skip_this else y
 
 
 class UnetGenerator(nn.Module):
     """Recursive U-Net; num_downs = 7 for unet_128, 8 for unet_256.
     ``num_skips`` (< 0: all) limits how many levels, from the innermost,
-    keep their skip concat.  Takes no noise: stochasticity comes from
-    dropout only (reference models/networks.py:362-367)."""
+    keep their skip concat.  Takes no noise input: stochasticity comes
+    from dropout and the injected Gaussian noise (reference
+    models/networks.py:362-367)."""
 
     def __init__(self, input_nc, output_nc, num_downs, ngf=64,
                  norm_layer=BatchNorm2d, use_dropout=False, use_residual=False,
-                 add_gaussian_noise=False, num_skips=-1):
+                 add_gaussian_noise=False, gaussian_sigma=0.1, num_skips=-1):
         super().__init__()
         self.use_residual = use_residual
         if num_skips < 0:
             num_skips = num_downs
-        gauss = dict(add_gaussian_noise=add_gaussian_noise)
+        gauss = dict(add_gaussian_noise=add_gaussian_noise,
+                     gaussian_sigma=gaussian_sigma)
         add_skip_this = num_skips >= 1
         block = UnetSkipConnectionBlock(ngf * 8, ngf * 8, norm_layer=norm_layer,
                                         innermost=True,
@@ -134,13 +145,16 @@ class UnetGenerator(nn.Module):
 
 
 class CrnUpsampleBlock(nn.Module):
-    """convt: ConvT k4s2p1 + norm;  bilinear: Conv3x3 + x2 bilinear + norm."""
+    """convt: ConvT k4s2p1 + norm;  bilinear: Conv3x3 + x2 bilinear + norm;
+    then sigma N(0, 1) with add_gaussian_noise (reference
+    models/networks.py:738-764)."""
 
     def __init__(self, input_nc, output_nc, mode='convt',
-                 norm_layer=BatchNorm2d, add_gaussian_noise=False):
+                 norm_layer=BatchNorm2d, add_gaussian_noise=False,
+                 gaussian_sigma=0.1):
         super().__init__()
-        if add_gaussian_noise:
-            raise NotImplementedError('CRN --add_gaussian_noise not yet ported')
+        self.gauss = (GaussianNoise(gaussian_sigma) if add_gaussian_noise
+                      else None)
         if mode == 'convt':
             self.model = Sequential(
                 ConvTranspose2d(input_nc, output_nc, 4, 2, 1, bias=False),
@@ -154,7 +168,8 @@ class CrnUpsampleBlock(nn.Module):
             raise NotImplementedError('UpsampleBlock mode [%s]' % mode)
 
     def forward(self, x):
-        return self.model(x)
+        y = self.model(x)
+        return y if self.gauss is None else self.gauss(y)
 
 
 class CrnInterBlock(nn.Module):
@@ -185,8 +200,8 @@ class CascadedRefinementNetwork(nn.Module):
 
     def __init__(self, input_nc, output_nc, noise_nc, ngf=64, n_layers=5,
                  norm_layer=BatchNorm2d, upsample_mode='convt',
-                 add_gaussian_noise=False, share_label_weights=True,
-                 n_layers_block=1):
+                 add_gaussian_noise=False, gaussian_sigma=0.1,
+                 share_label_weights=True, n_layers_block=1):
         super().__init__()
         if n_layers != 5:
             raise ValueError('the CRN has n_layers == 5, got %d' % n_layers)
@@ -197,7 +212,8 @@ class CascadedRefinementNetwork(nn.Module):
                 CrnUpsampleBlock(in_nc, ngf, mode=upsample_mode,
                                  norm_layer=norm_layer,
                                  add_gaussian_noise=(add_gaussian_noise
-                                                     and with_gauss)),
+                                                     and with_gauss),
+                                 gaussian_sigma=gaussian_sigma),
                 CrnInterBlock(ngf, out_nc, n_layers=n_layers_block,
                               norm_layer=norm_layer, outer_most=outer_most))
 

@@ -6,6 +6,11 @@ Counterparts of supervised_gan_tpu/nn/losses.py:18-75:
   * gan_loss_multiclass GANLossMultiClass: per-pixel CE over the channel
                         dim of N-class logits;
   * weighted_l1_loss    WeightedL1Loss;
+  * cross_entropy_2d    CrossEntropyLoss2d of the segmentation head, with
+                        optional per-class weights (losses.py:78-90 there);
+  * seg_bce_loss        the sigmoid segmentation head's BCE, plain or with
+                        the per-pixel class weight map, by plain autograd
+                        (models/segmentation.py:211-229 there);
   * bce_loss            torch.nn.BCELoss numerics (log clamped at -100) with
                         the JAX package's custom gradient
                         (p - t) / max(p (1 - p), 1e-12): the plain autograd
@@ -60,3 +65,38 @@ def weighted_l1_loss(x, y, w=None):
     if w is not None:
         z = z * w.float()
     return z.mean()
+
+
+def cross_entropy_2d(logits, labels, weights=None):
+    """logits (N, C, H, W), labels (N, H, W) class ids: the mean of
+    -log softmax at the label; with per-class ``weights`` the weighted sum
+    over the summed weights of the targets (torch NLLLoss2d)."""
+    logp = torch.log_softmax(logits.float(), dim=1)
+    picked = logp.gather(1, labels.long().unsqueeze(1))[:, 0]
+    if weights is None:
+        return -picked.mean()
+    # weights[label] with no host-to-device copy (a captured step holds
+    # it); a label past the list takes its last weight, as a JAX gather
+    w = torch.full_like(picked, float(weights[-1]))
+    for i in reversed(range(len(weights) - 1)):
+        w = torch.where(labels == i, float(weights[i]), w)
+    return -(picked * w).sum() / w.sum()
+
+
+def seg_bce_loss(p, target, weights=None):
+    """Mean BCE of sigmoid probabilities ``p`` against the one-hot
+    ``target`` (N, C, H, W), each log clamped at -100.  With per-class
+    ``weights`` each pixel is weighted by 1 + sum_i target_i (w_i - 1) and
+    log p is taken of p floored at 1e-12."""
+    p, t = p.float(), target.float()
+    if weights is None:
+        terms = -(t * torch.log(p.clamp_min(0.0)).clamp_min(-100.0)
+                  + (1 - t) * torch.log((1 - p).clamp_min(0.0))
+                  .clamp_min(-100.0))
+        return terms.mean()
+    w = torch.ones_like(t[:, :1])
+    for i, wi in enumerate(weights):
+        w = w + t[:, i:i + 1] * (wi - 1.0)
+    terms = -(t * torch.log(p.clamp(1e-12, 1.0)).clamp_min(-100.0)
+              + (1 - t) * torch.log(1 - p).clamp_min(-100.0))
+    return (terms * w).mean()

@@ -6,7 +6,7 @@ dispatch (chunks of 2 steps, eager on the CPU).  Checked: the record's
 keys and types, finite losses, the per-step and chunked rates with the
 headline the better of them, every device field null on the CPU, the gates
 echoing the route, and the command line printing the record as its last
-line."""
+line (bench_extra's configurations: tests/test_torch_bench_extra.py)."""
 
 import json
 import sys
@@ -24,6 +24,17 @@ DEVICE_FIELDS = ('device_ms_per_step', 'device_kernels_per_step',
                  'chunked_device_ms_per_step',
                  'chunked_device_kernels_per_step', 'chunked_busy_share',
                  'graph_kernels', 'chunked_kernels_outside_graph_per_step')
+RECORD_KEYS = {
+    'metric', 'value', 'unit', 'dispatch_mode', 'per_step_img_s',
+    'windows_img_s', 'window_steps', 'chunk_steps', 'chunked_img_s',
+    'chunked_windows_img_s', 'chunked_wall_ms_per_step',
+    'chunked_device_ms_per_step', 'chunked_device_kernels_per_step',
+    'chunked_busy_share', 'graph_kernels',
+    'chunked_kernels_outside_graph_per_step', 'finite',
+    'wall_ms_per_step', 'enqueue_ms_per_step', 'device_ms_per_step',
+    'device_kernels_per_step', 'busy_share', 'host_gap_ms',
+    'device_rate_img_s', 'trace_steps', 'trace_primer_records_lost',
+    'launches_per_step', 'warmup_s', 'backend', 'device', 'gates'}
 FLOAT_FIELDS = ('value', 'per_step_img_s', 'wall_ms_per_step',
                 'enqueue_ms_per_step', 'warmup_s', 'chunked_img_s',
                 'chunked_wall_ms_per_step')
@@ -47,17 +58,7 @@ def record(request, tmp_path_factory):
 
 def test_record_keys_and_types(record):
     _, rec = record
-    assert set(rec) == {
-        'metric', 'value', 'unit', 'dispatch_mode', 'per_step_img_s',
-        'windows_img_s', 'window_steps', 'chunk_steps', 'chunked_img_s',
-        'chunked_windows_img_s', 'chunked_wall_ms_per_step',
-        'chunked_device_ms_per_step', 'chunked_device_kernels_per_step',
-        'chunked_busy_share', 'graph_kernels',
-        'chunked_kernels_outside_graph_per_step', 'finite',
-        'wall_ms_per_step', 'enqueue_ms_per_step', 'device_ms_per_step',
-        'device_kernels_per_step', 'busy_share', 'host_gap_ms',
-        'device_rate_img_s', 'trace_steps', 'trace_primer_records_lost',
-        'launches_per_step', 'warmup_s', 'backend', 'device', 'gates'}
+    assert set(rec) == RECORD_KEYS
     assert rec['metric'] == \
         'vnc128_dsgan_twostage_cycle_train_images_per_sec_per_chip'
     assert rec['unit'] == 'images/sec'

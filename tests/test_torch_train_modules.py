@@ -137,7 +137,7 @@ def test_dropout_in_unet_draws_from_the_generator():
     x = nchw(rand((1, 128, 128, 1), 7))
     outs = []
     for seed in (1, 1, 2):
-        tnn.set_dropout_generator(tf, torch.Generator().manual_seed(seed))
+        tnn.set_noise_generator(tf, torch.Generator().manual_seed(seed))
         with torch.no_grad():
             outs.append(tf(x))
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
