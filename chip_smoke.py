@@ -3,7 +3,9 @@
 chunked, --steps_per_dispatch, as a CUDA graph of the step), stage-1 label
 GAN, the README DSGAN workflow, SGAN step 2 (--model cgan: training,
 chunked, its conditional sampler), the segmentation gate (train_ss,
-test_ss) and the bench entry points on one CUDA card, on the hand-written
+test_ss), the rest of the two-stage family (--model twostage and
+twostage_factd, the DSGAN's training options), latent inversion (recon)
+and the bench entry points on one CUDA card, on the hand-written
 kernels and under --no_pallas, and hold every hand-written kernel against
 its plain PyTorch version.
 
@@ -139,8 +141,8 @@ comparison is float32 against float32.
      f32 and bf16, every parameter, Adam moment and pool image and the last
      losses, bitwise under deterministic algorithms; and one step under the
      default algorithms, a replay against eager steps from a state they
-     share bitwise, within twice the spread of three eager runs
-     (phase_chunk_equals_eager); in each bench arm
+     share bitwise, within twice the spread of three eager runs, at least
+     SPREAD_FLOOR (phase_chunk_equals_eager); in each bench arm
      the chunked windows and trace, the graph's kernel nodes equal to the
      eager step's traced kernels and the chunked step's traced kernels
      equal to those plus the input copies beside each replay; the train
@@ -183,7 +185,27 @@ comparison is float32 against float32.
      test_ss on it: exact launch counts, RandScore and meanIU finite and
      within [0, 1], the step time and the test images/s; the segmentation
      step through bench.main on both routes, f32, held as the bench's arms;
- 16. a JSON line of per-kernel results (launches: the DSGAN train step's),
+ 16. the rest of the two-stage family and latent inversion: the kernel
+     sites of one f32 step of twostage and twostage_factd (the README
+     command with --model changed, F2's flags dropped) and of the bench
+     configuration with --use_multi_class_GAN, with the fake_fake pairs
+     and --use_fixed_noise1, and with --no_cgan, and of one evaluation of
+     the inversion's objective with its gradient on stage 1's G; their
+     totals against TS_PER_STEP (written from the nets' structure), the
+     sites the DSGAN step does not have held against their plain versions
+     as in 3 and 6; each path TS_STEPS bf16 steps through the train entry
+     point (exact launches, finite losses) and a --steps_per_dispatch
+     chunk (the wrappers see 3 steps); twostage and twostage_factd also
+     the bench entry point on their command (bf16, kernels; held as the
+     bench phase's arms), CHUNK_STEPS chunked steps bitwise equal to
+     eager ones under deterministic algorithms, and one
+     f32 iteration card vs CPU as in 10 (losses 1e-3, gradients within
+     max(5e-2, 2 x floor) in L2), as the fake_fake run has; then recon on
+     stage 1's G at 512 px: the objective and its gradient in the noise
+     card vs CPU (1e-4 relative, 5e-2 in L2), and the recon entry point on
+     RECON_IMAGES images (each fit no worse than its start, launches from
+     the objective's evaluations, seconds an image, its last line);
+ 17. a JSON line of per-kernel results (launches: the DSGAN train step's),
      the card line, and the last line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
@@ -222,6 +244,7 @@ from PIL import Image  # noqa: E402
 
 from supervised_gan_tpu_torch import bench  # noqa: E402
 from supervised_gan_tpu_torch import bench_extra  # noqa: E402
+from supervised_gan_tpu_torch import recon  # noqa: E402
 from supervised_gan_tpu_torch import nn as tnn  # noqa: E402
 from supervised_gan_tpu_torch import test as sampler  # noqa: E402
 from supervised_gan_tpu_torch import test_ss  # noqa: E402
@@ -229,6 +252,7 @@ from supervised_gan_tpu_torch import train as trainer  # noqa: E402
 from supervised_gan_tpu_torch import train_ss  # noqa: E402
 from supervised_gan_tpu_torch.models import create_model  # noqa: E402
 from supervised_gan_tpu_torch.models.base import CAPTURE_AFTER  # noqa: E402
+from supervised_gan_tpu_torch.models.fcgan import FCGANModel  # noqa: E402
 from supervised_gan_tpu_torch.nn import core as nn_core  # noqa: E402
 from supervised_gan_tpu_torch.ops import bilinear_upsample  # noqa: E402
 from supervised_gan_tpu_torch.ops import conv as ops_conv  # noqa: E402
@@ -237,6 +261,7 @@ from supervised_gan_tpu_torch.ops import norm as ops_norm  # noqa: E402
 from supervised_gan_tpu_torch.ops.kernels import build  # noqa: E402
 from supervised_gan_tpu_torch.ops.kernels import common  # noqa: E402
 from supervised_gan_tpu_torch.ops.kernels import functions  # noqa: E402
+from supervised_gan_tpu_torch.options import TestOptions  # noqa: E402
 from supervised_gan_tpu_torch.options import TrainOptions  # noqa: E402
 from supervised_gan_tpu_torch.utils import pth  # noqa: E402
 from supervised_gan_tpu_torch.utils.profile import (  # noqa: E402
@@ -409,18 +434,35 @@ G2_CONV3, G2_LABEL_SIDE, G2_IN = 23, 6, 22
 F2_DOWN, F2_UP, F2_IN = 7, 7, 11
 D1_CONV, D1_STEMS, D2_CONV, D2_STEMS = 6, 2, 14, 4
 G1_CONVT = 6
-IN_PER_STEP = 2 * G2_IN + 3 * F2_IN + 3 * D1_CONV + 3 * D2_CONV
-LAUNCHES_PER_STEP = {
-    'conv3x3': 2 * G2_CONV3 + (G2_CONV3 - G2_LABEL_SIDE) + G2_CONV3,
-    'conv3x3_dw': 2 * G2_CONV3,
-    'instance_norm_act': IN_PER_STEP,
-    'instance_norm_bwd': IN_PER_STEP,
-    'conv4s2': (3 * F2_DOWN + 3 * D1_CONV + 3 * D2_CONV
-                + 3 * F2_UP + (G1_CONVT - 1)),
-    'convt4s2': (G1_CONVT + 3 * F2_UP
-                 + 2 * (D1_CONV - D1_STEMS) + 2 * (D2_CONV - D2_STEMS)
-                 + D1_CONV + D2_CONV + (F2_DOWN - 1) + 2 * F2_DOWN),
-}
+
+
+def two_stage_per_step(f2=True, d2_fakes=1, g2_pairs=1):
+    """Launches a step of a two-stage recipe at n_update 1: with F2 (the
+    cycle) or without (twostage), D2 updated on ``d2_fakes`` fake pairs and
+    the real one and judging ``g2_pairs`` pairs in the G update.  G2 on the
+    fake label has a backward with F2, whose cycle term consumes it; without
+    F2 (and without a fake_fake G2 pair) it feeds no loss."""
+    d2_passes = d2_fakes + 1 + g2_pairs
+    f2 = int(f2)
+    return {
+        'conv3x3': (2 * G2_CONV3 + (G2_CONV3 - G2_LABEL_SIDE)
+                    + f2 * G2_CONV3),
+        'conv3x3_dw': (1 + f2) * G2_CONV3,
+        'instance_norm_act': (2 * G2_IN + 3 * F2_IN * f2 + 3 * D1_CONV
+                              + d2_passes * D2_CONV),
+        'instance_norm_bwd': ((1 + f2) * G2_IN + 3 * F2_IN * f2
+                              + 3 * D1_CONV + d2_passes * D2_CONV),
+        'conv4s2': (3 * F2_DOWN * f2 + 3 * D1_CONV + d2_passes * D2_CONV
+                    + 3 * F2_UP * f2 + (G1_CONVT - 1)),
+        'convt4s2': (G1_CONVT + 3 * F2_UP * f2
+                     + 2 * (D1_CONV - D1_STEMS)
+                     + (d2_fakes + 1) * (D2_CONV - D2_STEMS)
+                     + D1_CONV + g2_pairs * D2_CONV
+                     + f2 * ((F2_DOWN - 1) + 2 * F2_DOWN)),
+    }
+
+
+LAUNCHES_PER_STEP = two_stage_per_step()
 
 # With the region's gate on (SGAN_TPU_CONV3_IN=1), G2's one site that passes
 # it at README widths, blockh0's first inter conv (64 -> 64 at 512^2, then IN
@@ -2455,6 +2497,19 @@ LOSSES_AFTER_D_UPDATE = ('G1_GAN', 'G2_GAN')
 # eager runs on an H100 were seen to differ there by 0, 1 or 2 units in the
 # last place of the float32 loss: the least spread those terms are given
 ULPS_AFTER_D_UPDATE = 2
+# The least spread of the whole state and of its worst tensor after the
+# default-algorithm step.  Its f32 eager runs do not spread evenly: G2's
+# update reads D2 as this step updated it, and where D2's float32 rounding
+# moves an activation across a LeakyReLU's kink, G2's gradient takes the
+# other slope there.  So two eager runs land apart by one of a few discrete
+# distances (whole 3.4e-9, 1.4e-7, 2.9e-7, 3.2e-7 or 5.03e-6, only G2 and
+# its Adam moments beyond 3.4e-9), and three runs often miss the largest:
+# in 8 rounds of 4 eager runs on an H100 (scripts/chunk_spread.py), an
+# eager run held in the chunked run's place failed twice the other three's
+# spread in 5 of 32 cases.  The largest pair seen there (whole 5.034e-6,
+# worst tensor 4.847e-3, f32; bf16 pairs 7.8e-6 to 8.5e-6, 9.2e-3) is the
+# floor; the factor of 2 stays above it.
+SPREAD_FLOOR = {'whole': 5.1e-6, 'worst': 4.9e-3}
 
 
 def _model_state(model):
@@ -2478,24 +2533,37 @@ def _model_state(model):
     return out, dict(model.get_current_errors())
 
 
+def _state_group(name):
+    """The net, optimizer or pool a _model_state tensor belongs to: 'D1_0',
+    'adam.G', 'pool.fake_B'."""
+    parts = name.split('.')
+    return '.'.join(parts[:2]) if parts[0] in ('adam', 'pool') else parts[0]
+
+
 def _state_diff(a, b):
     """Two _model_state results apart: the largest relative L2 difference of
     a tensor and its name, the tensors that differ at all, the relative L2
-    difference of the whole state, and each loss's absolute difference."""
+    difference of the whole state and of each group (_state_group) that
+    differs, and each loss's absolute difference."""
     (ta, la), (tb, lb) = a, b
     check(ta.keys() == tb.keys(), 'chunked state: keys differ')
-    worst, name, differ, num, den = 0.0, None, 0, 0.0, 0.0
+    worst, name, differ = 0.0, None, 0
+    sums = collections.defaultdict(lambda: [0.0, 0.0])
     for k in ta:
         x, y = ta[k].double(), tb[k].double()
         d, n = float((x - y).norm()), float(x.norm())
-        num, den = num + d * d, den + n * n
+        for g in (None, _state_group(k)):
+            sums[g][0] += d * d
+            sums[g][1] += n * n
         if d:
             differ += 1
             rel = d / max(n, 1e-30)
             if rel > worst:
                 worst, name = rel, k
-    return dict(worst=worst, name=name, differ=differ,
-                whole=(num / max(den, 1e-300)) ** 0.5,
+    rel = {g: (num / max(den, 1e-300)) ** 0.5
+           for g, (num, den) in sums.items()}
+    return dict(worst=worst, name=name, differ=differ, whole=rel.pop(None),
+                groups={g: v for g, v in sorted(rel.items()) if v},
                 losses={k: abs(la[k] - lb[k]) for k in la})
 
 
@@ -2605,6 +2673,29 @@ def _chunk_runs_default(dtype):
                 graph_kernels=graph_kernels, tensors=len(finals['A0'][0]))
 
 
+def _default_limits(pairs, losses, floor=SPREAD_FLOOR):
+    """Twice the largest of the eager pairs (_state_diff results): the whole
+    state's and the worst tensor's relative L2, at least ``floor``, and each
+    loss's difference, the terms of LOSSES_AFTER_D_UPDATE at least
+    ULPS_AFTER_D_UPDATE units in the last place of their float32 value
+    (``losses``)."""
+    limits = {m: 2 * max([p[m] for p in pairs.values()] + [floor.get(m, 0)])
+              for m in ('whole', 'worst')}
+    for k, v in losses.items():
+        s = max(p['losses'][k] for p in pairs.values())
+        if k in LOSSES_AFTER_D_UPDATE:
+            s = max(s, ULPS_AFTER_D_UPDATE
+                    * float(np.spacing(np.float32(abs(v)))))
+        limits[k] = 2 * s
+    return limits
+
+
+def _over_limits(diff, limits):
+    """The measures of one _state_diff result beyond ``limits``."""
+    over = [m for m in ('whole', 'worst') if diff[m] > limits[m]]
+    return over + [k for k, v in diff['losses'].items() if v > limits[k]]
+
+
 def phase_chunk_equals_eager(dtype):
     """Chunked (replays of the captured step) against eager steps: every
     parameter and buffer, Adam moment and step, the pools' images and the
@@ -2626,7 +2717,9 @@ def phase_chunk_equals_eager(dtype):
     (those of the step's starting state) must agree bitwise; the G terms
     read the discriminators this step updated, where a rounding flip of
     their float32 value is part of the eager spread, so their spread is at
-    least ULPS_AFTER_D_UPDATE units in its last place."""
+    least ULPS_AFTER_D_UPDATE units in its last place.  For the same reason
+    the state's eager runs land apart by a few discrete distances, which
+    three runs often miss, so its spread is at least SPREAD_FLOOR."""
     det = _chunk_runs_deterministic(dtype)
     spread, chunked = det['eager_spread'], det['chunked']
     check(spread['differ'] == 0 and not any(spread['losses'].values()),
@@ -2638,14 +2731,7 @@ def phase_chunk_equals_eager(dtype):
                                              chunked['losses']))
     default = _chunk_runs_default(dtype)
     pairs, chunked = default['eager_spread'], default['chunked']
-    limits = {m: 2 * max(p[m] for p in pairs.values())
-              for m in ('whole', 'worst')}
-    for k, v in default['losses'].items():
-        s = max(p['losses'][k] for p in pairs.values())
-        if k in LOSSES_AFTER_D_UPDATE:
-            s = max(s, ULPS_AFTER_D_UPDATE
-                    * float(np.spacing(np.float32(abs(v)))))
-        limits[k] = 2 * s
+    limits = _default_limits(pairs, default['losses'])
     print('  %s, one step from a shared state, default algorithms: eager vs '
           'eager %s; chunked vs eager %s; limits %s; the graph holds %d '
           'kernels' % (
@@ -2657,8 +2743,7 @@ def phase_chunk_equals_eager(dtype):
               {m: '%.4g' % v for m, v in limits.items()},
               default['graph_kernels']))
     for n, c in chunked.items():
-        over = [m for m in ('whole', 'worst') if c[m] > limits[m]]
-        over += [k for k, v in c['losses'].items() if v > limits[k]]
+        over = _over_limits(c, limits)
         check(not over, 'chunked %s, %s: %s beyond twice the eager spread '
               '(%s)' % (dtype, n, over,
                         {m: (c[m] if m in c else c['losses'][m], limits[m])
@@ -3198,6 +3283,318 @@ def phase_segmentation():
               t['ce_std']))
     return out
 
+# ----------- the rest of the two-stage family and latent inversion -- #
+
+TS_NAME = 'chip_smoke_ts'
+# the README command's flags that only F2 (the cycle) reads
+F2_ONLY = ('--which_model_netF2', '--nff2', '--lambda_B', '--lambda_A_cycle',
+           '--lambda_fake_cycle')
+PAIRS = ['--GAN_losses_D2', 'real_fake', 'fake_fake',
+         '--GAN_losses_G2', 'real_fake', 'fake_fake']
+# the three runs of the DSGAN's training options, each on the bench
+# configuration: (a) the 3-class D2, (b) the fake_fake pairs with the
+# fixed-noise pool, (c) D2 on the image alone
+FLAG_RUNS = (('multi_class', ['--use_multi_class_GAN']),
+             ('pairs_fixed_noise', PAIRS + ['--use_fixed_noise1']),
+             ('no_cgan', ['--no_cgan']))
+# Launches a step (n_update 1, the README's real_fake pairs; the runs (a)
+# and (b) add one D2 pass in its update, (b) one in the G update too).
+# twostage: G1 once, G2 twice, no F2; G2 on the fake label feeds no loss.
+# twostage_factd: D2's loss takes D1_i x D2_i at the 2 paired scales, so
+# D2_2 and D2_3 never run; D1's bank runs without a graph in each of those
+# predictions in the D2 update (on the pooled fake and the real pair), and
+# in the G update's real_fake term (its label part is the real label): a
+# forward each, no backward.  The two paired Ds (n_layers 3 and 4) hold 7
+# k4 s2 convs, 2 of them stems, and 7 IN.
+FD2_CONV, FD2_STEMS = 7, 2
+TS_PER_STEP = {
+    'twostage': two_stage_per_step(f2=False),
+    'twostage_factd': {
+        'conv3x3': 2 * G2_CONV3 + (G2_CONV3 - G2_LABEL_SIDE),
+        'conv3x3_dw': G2_CONV3,
+        'instance_norm_act': (2 * G2_IN + 2 * D1_CONV
+                              + 2 * (D1_CONV + FD2_CONV) + D1_CONV
+                              + (D1_CONV + FD2_CONV)),
+        'instance_norm_bwd': (G2_IN + 2 * D1_CONV + 2 * FD2_CONV + D1_CONV
+                              + FD2_CONV),
+        'conv4s2': (2 * D1_CONV + 2 * (D1_CONV + FD2_CONV) + D1_CONV
+                    + (D1_CONV + FD2_CONV) + (G1_CONVT - 1)),
+        'convt4s2': (G1_CONVT + 2 * (D1_CONV - D1_STEMS)
+                     + 2 * (FD2_CONV - FD2_STEMS) + D1_CONV + FD2_CONV)},
+    'multi_class': two_stage_per_step(d2_fakes=2),
+    'pairs_fixed_noise': two_stage_per_step(d2_fakes=2, g2_pairs=2),
+    'no_cgan': two_stage_per_step()}
+# latent inversion, stage 1's G (6 transposed convs, BatchNorm): each
+# evaluation of the objective runs G forward; with a gradient, each
+# transposed conv's dx too (the noise is the variable: the first one's as
+# well), and no dW (G is frozen)
+RECON_PER_EVAL = {'convt4s2': G1_CONVT}
+RECON_PER_GRAD_EVAL = {'convt4s2': G1_CONVT, 'conv4s2': G1_CONVT}
+TS_STEPS, TS_CHUNK = 3, 4
+RECON_IMAGES = 2
+
+
+def _without(args, *flags):
+    """``args`` without each --flag in ``flags`` and its values."""
+    out, keep = [], True
+    for a in args:
+        if a.startswith('--'):
+            keep = a not in flags
+        if keep:
+            out.append(a)
+    return out
+
+
+def ts_args(model, name, dtype, steps):
+    """The README DSGAN command (readme_args) with --model ``model`` and
+    F2's flags dropped: the same G1, G2, D1 and D2, stage 1's G1 and D1
+    loaded."""
+    args = _without(readme_args(name, dtype, steps), *F2_ONLY)
+    args[args.index('--model') + 1] = model
+    return args
+
+
+def path_args(path, name, dtype, steps):
+    """The command of a path of this phase: the README's for twostage and
+    twostage_factd, the bench configuration with its flags for a flag
+    run."""
+    if path in ('twostage', 'twostage_factd'):
+        return ts_args(path, name, dtype, steps)
+    return (TRAIN_FLAGS + dict(FLAG_RUNS)[path] + ON_CARD
+            + _epoch_flags(name, dtype, steps))
+
+
+def phase_ts_sites(dsgan_books, stage1_name):
+    """The kernel sites of one f32 step of each path (recorded as
+    record_step_sites does) and of one evaluation of the inversion's
+    objective with its gradient (stage 1's G at 512 px), their totals
+    against TS_PER_STEP and RECON_PER_GRAD_EVAL, and the sites the DSGAN
+    step does not have, printed, each with its plan checked.  Returns (the
+    new sites' books, in train_cases' keys; the per-path books)."""
+    paths = {}
+    for path in TS_PER_STEP:
+        m = create_model(TrainOptions().parse(path_args(
+            path, '%s_%s_sites' % (TS_NAME, path), 'float32', 1)))
+        m.set_input(fixed_batch())
+        paths[path] = record_step_sites(m.optimize_parameters)
+        del m
+        gc.collect()
+    g = create_model(TestOptions().parse(recon_args(stage1_name)))
+    g.set_input(fixed_batch())
+    z = torch.randn(g._noise_shape(), device=DEV,
+                    generator=torch.Generator(DEV).manual_seed(21))
+    paths['recon'] = record_step_sites(
+        lambda: g.recon_objective(z.requires_grad_(True), g.input).backward())
+    del g
+    torch.cuda.empty_cache()
+    want_of = dict(TS_PER_STEP, recon=RECON_PER_GRAD_EVAL)
+    for path, b in paths.items():
+        got = {'conv4s2': sum(b['conv4s2'].values()),
+               'convt4s2': sum(b['ConvT4s2'].values())
+               + sum(b['conv4s2_dx'].values()),
+               'instance_norm_act': sum(b['InstanceNormAct'].values()),
+               'instance_norm_bwd': sum(b['instance_norm_bwd'].values())}
+        want = {k: want_of[path].get(k, 0) for k in got}
+        check(got == want, '%s: recorded calls %s, expected %s'
+              % (path, got, want))
+        print('  %-18s calls %s' % (path, got))
+    new = {k: collections.Counter() for k in NEW_KINDS}
+    for b in paths.values():
+        for kind in NEW_KINDS:
+            for key, c in b[kind].items():
+                if key not in dsgan_books[kind]:
+                    new[kind][key] += c
+    for (xs, ws, has_b), c in sorted(new['conv4s2'].items()):
+        check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
+        print('  new site conv4s2      %d->%d @%dx%d%s x%d' % (
+            xs[1], ws[0], xs[2], xs[3], ' +b' if has_b else '', c))
+    for (xs, ws, has_b), c in sorted(new['ConvT4s2'].items()):
+        check_convt4s2_plan(xs[0], xs[1], ws[1], xs[2], xs[3])
+        print('  new site convt4s2     %d->%d @%dx%d%s x%d' % (
+            xs[1], ws[1], xs[2], xs[3], ' +b' if has_b else '', c))
+    for (gs, ws), c in sorted(new['conv4s2_dx'].items()):
+        check_convt4s2_plan(gs[0], gs[1], ws[1], gs[2], gs[3])
+        print('  new site convt4s2 dx  %d->%d @%dx%d x%d' % (
+            gs[1], ws[1], gs[2], gs[3], c))
+    for kind in ('InstanceNormAct', 'instance_norm_bwd'):
+        for (xs, slope), c in sorted(new[kind].items(), key=_in_key):
+            check_in_plan(*xs)
+            print('  new site %-17s %d @%dx%d slope %s x%d' % (
+                kind, xs[1], xs[2], xs[3], slope, c))
+    books = {'conv3x3_dw': {}, 'conv3x3_dx': {}, 'conv4s2': new['conv4s2'],
+             'convt4s2_f2': new['ConvT4s2'], 'conv4s2_dx': new['conv4s2_dx'],
+             'InstanceNormAct': new['InstanceNormAct'],
+             'instance_norm_bwd': new['instance_norm_bwd']}
+    return books, paths
+
+
+def chunk_driver(path):
+    """The train entry point on a path's command with --steps_per_dispatch
+    TS_CHUNK, bf16, one epoch of TS_CHUNK images, no print or save inside:
+    one chunk, its first two steps eager, then the capture and a replay.
+    The wrappers see CAPTURE_AFTER + 1 steps."""
+    name = '%s_%s_chunked' % (TS_NAME, path)
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        r = trainer.main(path_args(path, name, 'bfloat16', TS_CHUNK) + [
+            '--print_freq', '100', '--display_freq', '100',
+            '--save_epoch_freq', '100', '--steps_per_dispatch',
+            str(TS_CHUNK)])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check(r['chunks'] == [TS_CHUNK], '%s chunked: chunks %s'
+          % (path, r['chunks']))
+    want = expected(TS_PER_STEP[path], CAPTURE_AFTER + 1)
+    check(counts == want, '%s chunked: launches %s, expected %s (the eager '
+          'steps and the capture)' % (path, counts, want))
+    print('  %s chunked: chunks %s, wall %.1f ms' % (
+        path, r['chunks'], 1e3 * r['step_seconds'][0]))
+    return dict(chunks=r['chunks'], step_seconds=r['step_seconds'],
+                launches=counts)
+
+
+def ts_bench(path):
+    """The bench entry point on a recipe's README command (bf16, kernels):
+    per step and chunked rates, device ms, busy share, held as the bench
+    phase's arms with TS_PER_STEP's launches."""
+    base = ts_args(path, '%s_%s_bench' % (TS_NAME, path), 'bfloat16', 1)
+    return _bench_arms(((path + ' kernels bf16', []),),
+                       lambda flags, **kw: bench.main(
+                           flags, base=base, metric_name='dsgan_' + path,
+                           **kw), TS_PER_STEP[path])
+
+
+def _ts_model(path):
+    return lambda dt, label: create_model(TrainOptions().parse(path_args(
+        path, '%s_%s_chunk_%s' % (TS_NAME, path, label), dt, CHUNK_STEPS)))
+
+
+def ts_reference_step(path):
+    """One f32 iteration of a path at 512 px, card (kernels) vs CPU (plain
+    versions), as phase_reference_step holds the DSGAN's: losses 1e-3,
+    gradients within max(5e-2, 2 x floor) in L2; no pool, no dropout."""
+    flags = _without(path_args(path, TS_NAME + '_ref', 'float32', 1),
+                     '--gpu_ids')
+    return _reference_step((), '_%s' % path, 'float32', loss_tol=1e-3,
+                           grad_tol=5e-2, floor_factor=2, card_flags=[],
+                           recipe=Recipe(flags, '%s_%s' % (TS_NAME, path),
+                                         ['--pool_size', '0',
+                                          '--no_dropout2'],
+                                         _dsgan_draws, _step_in_parts))
+
+
+def phase_two_stage():
+    """twostage and twostage_factd on the README command (bf16): TS_STEPS
+    eager steps through the train entry point (launches, finite losses),
+    one chunk through it, the bench's record, CHUNK_STEPS chunked steps
+    bitwise equal to eager ones (deterministic algorithms), and one f32
+    iteration card vs CPU; each flag run TS_STEPS eager steps and one
+    chunk, (b) the card-vs-CPU iteration too."""
+    out = {}
+    for path in TS_PER_STEP:
+        name = '%s_%s' % (TS_NAME, path)
+        r = dict(train=run_train(path_args(path, name, 'bfloat16', TS_STEPS),
+                                 name, TS_STEPS, TS_PER_STEP[path]))
+        full = path in ('twostage', 'twostage_factd')
+        r['chunked'] = chunk_driver(path)
+        if full:
+            r['bench'] = ts_bench(path)
+            det = _chunk_runs_deterministic('bfloat16', make=_ts_model(path))
+            for what in ('eager_spread', 'chunked'):
+                d = det[what]
+                check(d['differ'] == 0 and not any(d['losses'].values()),
+                      '%s: %s under deterministic algorithms: %d tensors '
+                      'differ (worst %s), losses %s' % (
+                          path, what, d['differ'], d['name'], d['losses']))
+            r['chunk_equals_eager'] = det
+        if full or path == 'pairs_fixed_noise':
+            print('  %s: one f32 iteration, card vs CPU' % path)
+            r['reference_step'] = ts_reference_step(path)
+        out[path] = r
+    return out
+
+
+def recon_args(stage1_name):
+    """recon.py's flags for stage 1's run: its architecture, the synthetic
+    training set, on the card."""
+    return (STAGE1_ARCH + ON_CARD + ['--name', stage1_name, '--phase', 'train',
+                                     '--results_dir',
+                                     os.path.join(RESULTS_DIR, 'recon')])
+
+
+def phase_recon(stage1_name):
+    """fcgan latent inversion on stage 1's G (512 px, f32): the objective
+    and its gradient in the noise at one draw, card (kernels) vs CPU (plain
+    versions), 1e-4 relative and 5e-2 in L2; then the recon entry point
+    for RECON_IMAGES images: each fit no worse than its start, launches =
+    those of the objective's evaluations counted as they run, seconds an
+    image, and the entry point's last line."""
+    card = create_model(TestOptions().parse(recon_args(stage1_name)))
+    cpu = create_model(TestOptions().parse(recon_args(stage1_name)
+                                           + ['--gpu_ids', '-1']))
+    batch = fixed_batch(seed=7)
+    card.set_input(batch)
+    cpu.set_input(batch)
+    z = torch.randn(card._noise_shape(), generator=torch.Generator()
+                    .manual_seed(22))
+    grads = []
+    for m in (card, cpu):
+        zz = z.to(m.device, copy=True).requires_grad_(True)
+        loss = m.recon_objective(zz, m.input)
+        loss.backward()
+        grads.append((float(loss.detach()), zz.grad.cpu().double()))
+    (lc, gc_), (lp, gp) = grads
+    loss_rel = abs(lc - lp) / abs(lp)
+    grad_l2 = float((gc_ - gp).norm() / gp.norm())
+    print('  objective card %.8f cpu %.8f (rel %.2e, limit 1e-4); gradient '
+          'in z L2 rel %.2e (limit 5e-2)' % (lc, lp, loss_rel, grad_l2))
+    check(loss_rel <= 1e-4 and grad_l2 <= 5e-2, 'recon objective: card vs '
+          'CPU loss rel %.3g, gradient %.3g' % (loss_rel, grad_l2))
+    del card, cpu
+    evals = collections.Counter()
+    generate = FCGANModel._recon_generate
+
+    def counted(self, noise):
+        evals['grad' if torch.is_grad_enabled() else 'no_grad'] += 1
+        return generate(self, noise)
+
+    FCGANModel._recon_generate = counted
+    K.reset_launch_counts()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            r = recon.main(recon_args(stage1_name)
+                           + ['--how_many', str(RECON_IMAGES)])
+    finally:
+        FCGANModel._recon_generate = generate
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = expected({}, 0)
+    n = evals['grad'] + evals['no_grad']
+    want.update(convt4s2=RECON_PER_EVAL['convt4s2'] * n,
+                conv4s2=RECON_PER_GRAD_EVAL['conv4s2'] * evals['grad'])
+    check(counts == want, 'recon: launches %s, expected %s (%s evaluations)'
+          % (counts, want, dict(evals)))
+    line = buf.getvalue().strip().splitlines()[-1]
+    check(r['images'] == RECON_IMAGES and line.startswith('BCE: mean ')
+          and all(np.isfinite(r[k]).all() for k in ('bce', 'nll', 'nll_init')),
+          'recon: %d images, last line %r' % (r['images'], line))
+    check(all(e <= e0 for e, e0 in zip(r['bce'], r['bce_init'])),
+          'recon: a fit worse than its start: %s vs %s' % (r['bce'],
+                                                          r['bce_init']))
+    print('  %s' % line)
+    print('  %d images, %s s an image; BCE %s from %s; %s objective '
+          'evaluations; launches %s' % (
+              r['images'], ['%.2f' % t for t in r['seconds']], r['bce'],
+              r['bce_init'], dict(evals), counts))
+    return dict(loss_card=lc, loss_cpu=lp, loss_rel=loss_rel,
+                grad_l2_rel=grad_l2, images=r['images'],
+                seconds=r['seconds'], bce=r['bce'], bce_init=r['bce_init'],
+                nll=r['nll'], nll_init=r['nll_init'], evals=dict(evals),
+                launches=counts, line=line)
+
+
 
 def main():
     t_start = time.time()
@@ -3466,6 +3863,21 @@ def main():
     new_seconds = time.time() - t_new
     print('SGAN step 2 and segmentation phases: %.1f s' % new_seconds)
 
+    print('== the two-stage family (twostage, twostage_factd, the DSGAN\'s '
+          'training options) and latent inversion: their kernel sites, and '
+          'those the DSGAN step does not have')
+    t_ts = time.time()
+    ts_books, ts_paths = phase_ts_sites(books, stage1_name)
+    print('== kernels vs plain versions at the two-stage family\'s new sites')
+    per_site_ts, agg_ts = run_cases(new_site_cases(ts_books))
+    print('== twostage, twostage_factd (README command, bf16) and the '
+          'training options (bench configuration)')
+    two_stage = phase_two_stage()
+    print('== latent inversion: recon on stage 1\'s G, 512 px')
+    recon_run = phase_recon(stage1_name)
+    ts_seconds = time.time() - t_ts
+    print('two-stage family and recon phases: %.1f s' % ts_seconds)
+
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
                  'instance_norm_bwd', 'conv4s2', 'conv3x3_in_stats',
@@ -3531,6 +3943,15 @@ def main():
                                     launches_per_forward=SEG_PER_FORWARD),
                   new_sites=per_site_new, new_site_sums=agg_new,
                   new_phases_seconds=new_seconds,
+                  two_stage=dict(two_stage, launches_per_step=TS_PER_STEP,
+                                 sites=per_site_ts, site_sums=agg_ts,
+                                 site_books={
+                                     path: {k: {repr(s_): c
+                                                for s_, c in v.items()}
+                                            for k, v in b.items()}
+                                     for path, b in ts_paths.items()},
+                                 seconds=ts_seconds),
+                  recon=recon_run,
                   new_site_books={
                       path: {k: {repr(s_): c for s_, c in v.items()}
                              for k, v in b.items()}

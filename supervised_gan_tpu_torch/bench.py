@@ -34,7 +34,7 @@ the batch stacked CHUNK times, ``train_chunk_stacked`` once (on a card the
 step's capture as a CUDA graph, models/graph.py), then N_WINDOWS windows of
 WINDOW_STEPS steps in chunks of CHUNK, each ended by one synchronize:
 ``chunked_img_s`` (median) and ``chunked_windows_img_s``.  On a card a
-trace of TRACE_STEPS // CHUNK chunks (at least one) gives the chunked
+trace of one chunk of min(TRACE_STEPS, CHUNK) steps gives the chunked
 step's device time, kernels and busy share (``chunked_*``), the graph's
 kernel nodes (``graph_kernels``; each replay counted as a launch of each)
 and the kernels launched beside the replays (the copies of the inputs into
@@ -200,14 +200,18 @@ def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
     chunked_wall_ms = 1e3 * opt.batchSize / chunked_img_s
     chunked_ms = chunked_kernels = outside = None
     if cuda:
-        chunks = max(1, trace_steps // chunk)
-        prof, _ = traced(lambda: model.train_chunk_stacked(stacked, chunk),
-                         chunks, dev, host=False,
-                         graph_kernels=model.graph_kernels())
-        rows = device_rows(prof, chunks * chunk)
+        # one chunk of at most trace_steps steps: back to back, replays
+        # emit device records faster than the host's trace per step does,
+        # and a 10-step chunk of the f32 library route (38k kernels) lost
+        # some in every trace on an H100
+        n = min(trace_steps, chunk)
+        part = {name: t[:n] for name, t in stacked.items()}
+        prof, _ = traced(lambda: model.train_chunk_stacked(part, n), 1, dev,
+                         host=False, graph_kernels=model.graph_kernels())
+        rows = device_rows(prof, n)
         chunked_ms = sum(r[1] for r in rows)
         chunked_kernels = sum(r[2] for r in rows if not is_copy(r[0]))
-        outside = kernel_launches(prof)[0] / (chunks * chunk)
+        outside = kernel_launches(prof)[0] / n
     if chunked_img_s > img_s:
         value, mode = chunked_img_s, 'chunked[k=%d]' % chunk
     else:

@@ -24,7 +24,7 @@ import os
 import torch
 
 from .graph import StepGraph
-from .pools import decide, draw_decisions, pool_apply
+from .pools import decide, draw_decisions, pool_apply, pool_take, sample_rows
 from .. import nn
 from ..ops.kernels import set_kernels_enabled
 from ..utils import pth as pthio
@@ -116,6 +116,7 @@ class BaseModel:
                               if opt.compute_dtype == 'bfloat16'
                               else torch.float32)
         self.pools = {}
+        self.sampled_pools = ()    # pools only read (models/pools.py)
         self.steps_run = 0
         self._rows = None          # this step's pool rows, on the device
         self._graph = None         # the captured step (models/graph.py)
@@ -150,38 +151,53 @@ class BaseModel:
 
     # ------------------------------------------------------------ pools -- #
     def pool_queries(self):
-        """The pools a train step queries, in order, each with a batch of
-        --batchSize images; recipes with pools define it."""
+        """The pools a train step queries or samples (``sampled_pools``), in
+        order, each for a batch of --batchSize images; recipes with pools
+        define it."""
         return []
 
     def stage_rows(self, k):
-        """The pool rows (models/pools.py decide) of the next k steps, drawn
-        on the host in the order k eager steps draw them, as one (k, Q, 3)
-        tensor on the device (one copy); None when no pool is queried."""
+        """The pool rows (models/pools.py decide, sample_rows) of the next
+        k steps, drawn on the host in the order k eager steps draw them, as
+        one (k, Q, 3) tensor on the device (one copy); None when no pool is
+        queried."""
         rows = []
+        n = self.opt.batchSize
         for _ in range(k):
             for name in self.pool_queries():
                 pool = self.pools[name]
-                if pool is not None:
+                if pool is None:
+                    continue
+                if name in self.sampled_pools:
+                    rows += sample_rows(pool, n, self.pool_generator)
+                else:
                     rows += decide(pool, draw_decisions(
-                        pool, self.opt.batchSize, self.pool_generator))
+                        pool, n, self.pool_generator))
         if not rows:
             return None
         return self.to_device(torch.tensor(rows, dtype=torch.int64)).view(
             k, -1, 3)
+
+    def _next_rows(self, name, n):
+        if self._rows is None or self._rows.shape[0] < n:
+            raise RuntimeError('%s: no pool rows staged for this query; run '
+                               'steps through optimize_parameters or '
+                               'train_chunk' % name)
+        rows, self._rows = self._rows[:n], self._rows[n:]
+        return rows
 
     def query_pool(self, name, batch):
         """The pooled batch of pool ``name``: the next rows of this step."""
         pool = self.pools[name]
         if pool is None:
             return batch
-        n = batch.shape[0]
-        if self._rows is None or self._rows.shape[0] < n:
-            raise RuntimeError('%s: no pool rows staged for this query; run '
-                               'steps through optimize_parameters or '
-                               'train_chunk' % name)
-        rows, self._rows = self._rows[:n], self._rows[n:]
-        return pool_apply(pool, batch, rows)
+        return pool_apply(pool, batch, self._next_rows(name, batch.shape[0]))
+
+    def sample_pool(self, name):
+        """--batchSize stored images of the sampled pool ``name``, at the
+        next rows of this step."""
+        return pool_take(self.pools[name],
+                         self._next_rows(name, self.opt.batchSize))
 
     # --------------------------------------------------------- training -- #
     def train_step(self):
@@ -279,9 +295,10 @@ class BaseModel:
             n_layers_G_skip=g('n_layers_G_skip', -1),
             generator=self.init_generator)
 
-    def build_D_bank(self, input_nc, suffix=''):
+    def build_D_bank(self, input_nc, suffix='', num_classes=2):
         """The multi-scale discriminator bank of a suffixed option block, as
-        a ModuleList (reference fcgan_model.py:78)."""
+        a ModuleList (reference fcgan_model.py:78); ``num_classes`` 3 gives
+        each D a 3-class logit head (--use_multi_class_GAN)."""
         o = self.opt
 
         def g(name):
@@ -296,6 +313,7 @@ class BaseModel:
             nn.define_D(input_nc, g('ndf'), g('which_model_netD'),
                         n_layers_D=n_layers, norm=o.norm,
                         use_sigmoid=g('no_lsgan'), scale_factor=scale,
+                        num_classes=num_classes,
                         generator=self.init_generator)
             for scale, n_layers in zip(g('scale_factor'), g('n_layers_D')))
 

@@ -1,6 +1,6 @@
 """What the recipes share (counterpart of supervised_gan_tpu/models/
-common.py): the cGAN pair and the WeightedL1 weight map (:78 and :92
-there), the alternating update schedule of the one-G recipes (fcgan,
+common.py): the cGAN pair, the WeightedL1 weight map and the factorized
+D2's padded product (:78, :92 and :104 there), the alternating update schedule of the one-G recipes (fcgan,
 cgan, segmentation; ``build_gan_train_step`` there) and the D update on
 (conditioning, generated) pairs that cgan and segmentation share."""
 
@@ -34,6 +34,36 @@ def l1_weight_map(real_A, weights):
     for i, wi in enumerate(weights):
         w = w + a[:, i:i + 1] * (wi - 1.0)
     return w
+
+
+def reflection_pad(x, left, right, top, bottom):
+    """ReflectionPad2d of NCHW x by (left, right, top, bottom), each less
+    than the side it pads: F.pad(mode='reflect')'s values, built from
+    slices, flips and one concatenation an axis, so its backward adds no
+    atomics (the library's reflection-pad backward on CUDA does, and is not
+    deterministic)."""
+    def pad(x, dim, lo, hi):
+        parts = [x]
+        if lo:
+            parts.insert(0, x.narrow(dim, 1, lo).flip(dim))
+        if hi:
+            parts.append(x.narrow(dim, x.shape[dim] - 1 - hi, hi).flip(dim))
+        return torch.cat(parts, dim) if len(parts) > 1 else x
+    return pad(pad(x, 3, left, right), 2, top, bottom)
+
+
+def mul_padded(in1, in2):
+    """in1 * in2 with in1 reflection-padded, centred, to in2's spatial size
+    (reference util/util.py:131-145; models/common.py:104-118 there): the
+    left and bottom pads take the floor of each split."""
+    if in1.shape == in2.shape:
+        return in1 * in2
+    h1, w1 = in1.shape[2:]
+    h2, w2 = in2.shape[2:]
+    pad_l = (w2 - w1) // 2
+    pad_b = (h2 - h1) // 2
+    return reflection_pad(in1, pad_l, w2 - w1 - pad_l, h2 - h1 - pad_b,
+                          pad_b) * in2
 
 
 def alternate_updates(record, n_update_D, update_D, n_update_G, update_G):

@@ -1,8 +1,8 @@
 """Model recipe factory: the string dispatch of supervised_gan_tpu/models/
 factory.py, for the recipes ported so far."""
 
-_NOT_YET = ('cgan2', 'cgan_cycle', 'cgan2_cycle', 'cgan_causal',
-            'twostage', 'twostage_factd', 'test', 'segmentation_cycle')
+_NOT_YET = ('cgan2', 'cgan_cycle', 'cgan2_cycle', 'cgan_causal', 'test',
+            'segmentation_cycle')
 
 
 def create_model(opt):
@@ -10,6 +10,12 @@ def create_model(opt):
     if opt.model == 'twostage_cycle':
         from .twostage_cycle import TwoStageCycleModel
         model = TwoStageCycleModel()
+    elif opt.model == 'twostage':
+        from .twostage import TwoStageModel
+        model = TwoStageModel()
+    elif opt.model == 'twostage_factd':
+        from .twostage_factd import TwoStageFactDModel
+        model = TwoStageFactDModel()
     elif opt.model == 'fcgan':
         from .fcgan import FCGANModel
         model = FCGANModel()

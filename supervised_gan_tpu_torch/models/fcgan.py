@@ -17,8 +17,9 @@ recorded fake.  The JAX package's phase-major label pipeline (`_PHASE_G`,
 `space_to_phase`) is an XLA layout choice: the port computes the same
 function in pixel order.
 
-Not ported yet, raising NotImplementedError: `reconstruction` (recon.py's
-LBFGS latent inversion) and `interpolate` / `set_fixed_noise`.
+Sampling: ``test`` (a fresh noise), ``set_fixed_noise`` / ``interpolate``
+(G on a blend of two kept noises) and ``reconstruction``, the latent
+inversion of the recon entry point (fcgan.py:253-320 there).
 """
 
 from collections import OrderedDict
@@ -30,10 +31,35 @@ from .base import BaseModel, adam, parse_which_channel, set_lr
 from .common import alternate_updates
 from .pools import init_pool
 from .. import nn
-from ..nn.losses import gan_loss
+from ..nn.losses import bce_loss, gan_loss
 from ..utils.images import tensor2im
 
 METRICS_ORDER = ('G_GAN', 'D_real', 'D_fake')
+# reconstruction: restarts, L-BFGS iterations each, the curvature pairs kept
+RECON_TRIALS, RECON_ITERS, RECON_HISTORY = 3, 50, 10
+
+
+def lbfgs_minimize(objective, z0, iters=RECON_ITERS, history=RECON_HISTORY):
+    """``iters`` L-BFGS iterations on the scalar ``objective`` of a tensor
+    from ``z0``: torch.optim.LBFGS with one iteration a step call, a
+    strong-Wolfe line search and ``history`` curvature pairs kept across
+    the calls (the state optax.lbfgs carries between its updates), and no
+    early stop (tolerances 0): every iteration runs, as each of optax's
+    updates does.  Returns the last iterate."""
+    z = z0.detach().clone().requires_grad_(True)
+    solver = torch.optim.LBFGS([z], lr=1, max_iter=1, history_size=history,
+                               tolerance_grad=0, tolerance_change=0,
+                               line_search_fn='strong_wolfe')
+
+    def closure():
+        solver.zero_grad()
+        loss = objective(z)
+        loss.backward()
+        return loss
+
+    for _ in range(iters):
+        solver.step(closure)
+    return z.detach()
 
 
 class FCGANModel(BaseModel):
@@ -178,10 +204,10 @@ class FCGANModel(BaseModel):
 
     # ---------------------------------------------------------- sampling -- #
     def test(self):
-        noise = self.draw_noise()
+        self.last_noise = self.draw_noise()
         with torch.no_grad():
-            self.fake = self._generate(noise)
-        print('Random check: {}'.format(float(noise[0, 0, 0, 0])))
+            self.fake = self._generate(self.last_noise)
+        print('Random check: {}'.format(float(self.last_noise[0, 0, 0, 0])))
 
     def outputs(self):
         """The tensors one test() call produced."""
@@ -202,14 +228,82 @@ class FCGANModel(BaseModel):
                                + split(self.fake, 'fake'))
         return OrderedDict(split(self.fake, 'fake'))
 
-    def reconstruction(self):
-        raise NotImplementedError('fcgan reconstruction (recon.py, LBFGS '
-                                  'latent inversion) is not yet ported')
+    def set_fixed_noise(self, which_one):
+        """Keep the last test() noise as end A (``which_one`` 'A') or B."""
+        if which_one == 'A':
+            self.fixed_noiseA = self.last_noise
+        else:
+            self.fixed_noiseB = self.last_noise
 
     def interpolate(self, alpha):
-        raise NotImplementedError('fcgan interpolate / set_fixed_noise is not '
-                                  'yet ported')
+        """G on alpha * B + (1 - alpha) * A of the kept noises."""
+        self.last_noise = (alpha * self.fixed_noiseB
+                           + (1 - alpha) * self.fixed_noiseA)
+        with torch.no_grad():
+            self.fake = self._generate(self.last_noise)
+        self.real = getattr(self, 'input', None)
 
-    def set_fixed_noise(self, which_one):
-        raise NotImplementedError('fcgan interpolate / set_fixed_noise is not '
-                                  'yet ported')
+    def draw_recon_noise(self, trial):
+        """Trial ``trial``'s starting point, N(0, I) of the noise shape."""
+        return self.draw_noise()
+
+    def _recon_generate(self, noise):
+        """G on ``noise`` with the same dropout masks at every call (the
+        JAX package's fixed dropout key there): they draw from a generator
+        seeded anew for the call."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.opt.manualSeed or 0) + 98)
+        nn.set_noise_generator(self.netG, gen)
+        try:
+            return self._generate(noise)
+        finally:
+            nn.set_noise_generator(self.netG, self.noise_generator)
+
+    def recon_objective(self, noise, real):
+        """BCE((G(noise) + 1) / 2, (real + 1) / 2), what reconstruction
+        minimizes over the noise."""
+        return bce_loss((self._recon_generate(noise) + 1) / 2, (real + 1) / 2)
+
+    def reconstruction(self):
+        """L-BFGS latent inversion (fcgan.py:267-320 there; reference
+        fcgan_model.py:238-307): RECON_TRIALS starts from N(0, I), each
+        minimizing recon_objective on the input batch by L-BFGS
+        (lbfgs_minimize).  G's parameters are frozen, so its backward
+        computes dx only; its norms stay as in training.  Keeps the best trial; returns (its BCE,
+        the N(0, I) negative log-likelihood of its noise and of its start,
+        in float64 on the host) and sets fake, fake_init and real."""
+        real = self.input
+        shape = self._noise_shape()
+        dim = shape[1] * shape[2] * shape[3]
+
+        def nll(z):
+            z = z.detach().cpu().double().numpy().ravel()
+            return 0.5 * (z @ z) + 0.5 * dim * np.log(2 * np.pi)
+
+        starts = [self.draw_recon_noise(t) for t in range(RECON_TRIALS)]
+        frozen = [p for p in self.netG.parameters() if p.requires_grad]
+        for p in frozen:
+            p.requires_grad_(False)
+        best = dict(err=float('inf'))
+        def objective(z):
+            return self.recon_objective(z, real)
+
+        try:
+            for trial, noise0 in enumerate(starts):
+                print('trial {0} of {1}'.format(trial + 1, RECON_TRIALS))
+                z = lbfgs_minimize(objective, noise0)
+                with torch.no_grad():
+                    recon = self._recon_generate(z)
+                    err = float(bce_loss((recon + 1) / 2, (real + 1) / 2))
+                    if err < best['err']:
+                        best = dict(err=err, noise=z.detach(), recon=recon,
+                                    recon_init=self._recon_generate(noise0),
+                                    ll=nll(z), ll_init=nll(noise0))
+        finally:
+            for p in frozen:
+                p.requires_grad_(True)
+        self.last_noise = best['noise']
+        self.fake = best['recon']
+        self.fake_init = best['recon_init']
+        self.real = real
+        return best['err'], best['ll'], best['ll_init']

@@ -17,6 +17,11 @@ the JAX package's pool_query does): one indexed read, one indexed write (a
 self-write when the image is passed through), one select.  A captured CUDA
 graph of a train step holds that form, with the rows fed in as data.
 Stored images are detached copies.
+
+A sampled pool (the fixed-noise pool of --use_fixed_noise1) is only read:
+its slots are drawn on the host too (``sample_rows``, rows of the same
+form, each reading its slot and storing nothing) and gathered on the
+device (``pool_take``).
 """
 
 import torch
@@ -83,11 +88,25 @@ def pool_query(pool, batch, generator=None, reject=REJECT, draws=None):
     return pool_apply(pool, batch, rows)
 
 
+def sample_rows(pool, n, generator):
+    """The rows of n random stored images (the pool is assumed filled):
+    (slot, store 0, evicted 1), one slot drawn from ``generator`` each."""
+    size = pool['images'].shape[0]
+    return [(int(torch.randint(size, (), generator=generator)), 0, 1)
+            for _ in range(n)]
+
+
+def pool_take(pool, rows):
+    """The stored images at the slots of ``rows`` ((B, 3) int64 on the
+    pool's device, from ``sample_rows``)."""
+    return pool['images'].index_select(0, rows[:, 0])
+
+
 def pool_sample(pool, batch_size, generator):
     """batch_size random stored images (the pool is assumed filled)."""
-    size = pool['images'].shape[0]
-    slots = torch.randint(size, (batch_size,), generator=generator)
-    return pool['images'][slots.to(pool['images'].device)]
+    rows = torch.tensor(sample_rows(pool, batch_size, generator),
+                        dtype=torch.int64, device=pool['images'].device)
+    return pool_take(pool, rows)
 
 
 def pool_fill(pool, batch):

@@ -1,13 +1,15 @@
 """torch.profiler traces in which every kernel launch has its device record.
 
 The profiler (CUPTI) can lose the device records of the first kernels of a
-trace: 1-5 of them on the H100 with torch 2.11, the first wrapper kernel of
-a train step among them when there are 5.  So a trace on a CUDA device opens
-with PRIMER_SPINS spin kernels and a pause, which take those losses and
-which every count here leaves out; when it stops, the kernel launches of
-the traced stretch (the runtime calls in LAUNCH_CALLS, and for each replay
-of a captured step's CUDA graph its kernel nodes) are counted against its
-device records.
+trace, a count that grows as the process goes on: on the H100 with torch
+2.11, 0-20 early in chip_smoke.py and 27-34 in its later phases' traces
+without host operators (then a train step's own first kernels, with 32
+spins), as many with the spins back to back as 2 ms apart.  So a trace on
+a CUDA device opens with PRIMER_SPINS spin kernels and a pause, which take
+those losses and which every count here leaves out.  When it stops, the
+kernel launches of the traced stretch (the runtime calls in LAUNCH_CALLS,
+and for each replay of a captured step's CUDA graph its kernel nodes) are
+counted against its device records.
 
   ``traced(run, n, device)``: a trace of n calls of ``run``, taken again up
       to TRACES times while a launch lost its record, then a failure;
@@ -27,7 +29,7 @@ import time
 
 import torch
 
-PRIMER_SPINS = 32
+PRIMER_SPINS = 128
 TRACES = 3
 LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel')
 GRAPH_LAUNCH = 'cudaGraphLaunch'

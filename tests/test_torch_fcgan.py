@@ -14,7 +14,8 @@ gradient tolerance: Adam turns a rounding-sized gradient into +-lr).
 
 Also: one sample against the JAX sampler (1e-4, as the fcgan forward of
 tests/test_torch_weights.py), a save -> --continue_train round trip equal to
-two straight steps, and the train and test entry points with --gpu_ids -1.
+two straight steps, the train and test entry points with --gpu_ids -1, and
+interpolate between two kept noises.
 """
 
 import os
@@ -275,10 +276,21 @@ def test_sampler_prints_random_check(tmp_path, capsys):
     assert capsys.readouterr().out.startswith('Random check: ')
 
 
-def test_unported_fcgan_paths_raise(tmp_path):
-    m = tcreate(TTrainOptions().parse(_flags_rt(str(tmp_path))))
-    with pytest.raises(NotImplementedError, match='reconstruction'):
-        m.reconstruction()
-    with pytest.raises(NotImplementedError, match='interpolate'):
-        m.interpolate(0.5)
-
+def test_interpolate_between_kept_noises(tmp_path):
+    """set_fixed_noise keeps two test() draws; interpolate(alpha) runs G on
+    their blend, its ends the two samples (no dropout: one mask a call;
+    tests/test_torch_recon.py holds
+    interpolate and reconstruction against the JAX package)."""
+    m = tcreate(TTrainOptions().parse(_flags_rt(str(tmp_path),
+                                                '--no_dropout')))
+    ends = []
+    for which in ('A', 'B'):
+        m.test()
+        m.set_fixed_noise(which)
+        ends.append(m.fake)
+    m.interpolate(0.5)
+    assert torch.allclose(m.last_noise, (m.fixed_noiseA + m.fixed_noiseB) / 2)
+    assert m.fake.shape == (1, 3, 32, 32)
+    for alpha, end in ((0, ends[0]), (1, ends[1])):
+        m.interpolate(alpha)
+        assert torch.equal(m.fake, end)

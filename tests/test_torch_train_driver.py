@@ -5,7 +5,8 @@ DSGAN config with pools and dropout on.
 Checked: the loss lines, the numbered / latest checkpoints (the per-net
 .pth files and the port's full state), the web/ page, the lr decay print,
 that without --gpu_ids -1 and with no CUDA device it raises, and
---profile_dir's trace of steps 10-20."""
+--profile_dir's trace of steps 10-20 (the DSGAN options through this
+entry point: tests/test_torch_train_flags.py)."""
 
 import json
 import os
@@ -89,20 +90,6 @@ def test_train_without_cuda_raises(dataroot, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='gpu_ids -1'):
         ttrain.main(_args(dataroot, str(tmp_path / 'ckpt')))
-
-
-@pytest.mark.parametrize("extra,flag", [
-    (['--use_multi_class_GAN'], '--use_multi_class_GAN'),
-    (['--GAN_losses_D2', 'real_fake', 'fake_fake'], '--GAN_losses_D2'),
-    (['--use_fixed_noise1'], '--use_fixed_noise1'),
-    (['--no_cgan'], '--no_cgan')], ids=[
-    'extra2---use_multi_class_GAN',
-    'extra3---GAN_losses_D2', 'extra4---use_fixed_noise1',
-    'extra5---no_cgan'])
-def test_unported_training_flags_raise(dataroot, tmp_path, extra, flag):
-    with pytest.raises(NotImplementedError, match=flag):
-        ttrain.main(['--gpu_ids', '-1']
-                    + _args(dataroot, str(tmp_path / 'ckpt')) + extra)
 
 
 def test_profile_dir_writes_a_trace_of_steps_10_to_20(dataroot, tmp_path,
