@@ -4,10 +4,12 @@ chunked, --steps_per_dispatch, as a CUDA graph of the step), stage-1 label
 GAN, the README DSGAN workflow, SGAN step 2 (--model cgan: training,
 chunked, its conditional sampler), the segmentation gate (train_ss,
 test_ss), the rest of the two-stage family (--model twostage and
-twostage_factd, the DSGAN's training options), latent inversion (recon)
-and the bench entry points on one CUDA card, on the hand-written
-kernels and under --no_pallas, and hold every hand-written kernel against
-its plain PyTorch version.
+twostage_factd, the DSGAN's training options), latent inversion (recon),
+the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal),
+segmentation_cycle, --model test (resnet_9blocks) and the bench entry
+points on one CUDA card, on the hand-written kernels and under
+--no_pallas, and hold every hand-written kernel against its plain PyTorch
+version.
 
     python3 chip_smoke.py
 
@@ -205,7 +207,31 @@ comparison is float32 against float32.
      card vs CPU (1e-4 relative, 5e-2 in L2), and the recon entry point on
      RECON_IMAGES images (each fit no worse than its start, launches from
      the objective's evaluations, seconds an image, its last line);
- 17. a JSON line of per-kernel results (launches: the DSGAN train step's),
+ 17. the last recipes: the cgan family (cgan_cycle, cgan2, cgan2_cycle,
+     cgan_causal; CGAN_FLAGS' nets, the cycle's in the suffixed flags
+     with a unet_256 G2 from the image back to the label) on the
+     synthetic set and on an unaligned one (trainA: its images, trainB:
+     4 fake labels), segmentation_cycle (SEG_ARCH's G with a G2 and a
+     1-scale D2, f32) and --model test (resnet_9blocks ngf 64): the
+     kernel sites of one f32 step of each recipe, of one
+     segmentation_cycle val forward and of one resnet forward, their
+     totals against the launches written from the nets' structure
+     (FAMILY_PER_STEP, SEGC_PER_STEP, SEGC_PER_FORWARD,
+     RESNET_PER_FORWARD), the sites no earlier phase has held against
+     their plain versions as in 3 and 6; each cgan family recipe LAST_STEPS
+     bf16 steps through the train entry point (exact launches, finite
+     losses, its checkpoints), the bench entry point on its command (bf16,
+     kernels; held as the bench phase's arms) and one f32 iteration card
+     vs CPU as in 10 (cgan2_cycle at full width, the others at ngf / ndf
+     16); cgan_cycle also CHUNK_STEPS chunked steps bitwise equal to eager
+     ones (deterministic algorithms) and its conditional sampler on the
+     trained run; segmentation_cycle train_ss (LAST_STEPS steps,
+     validation, the best checkpoint) and test_ss on it (exact launches,
+     RandScore and meanIU within [0, 1]), its step through bench.main
+     (f32, kernels) and one f32 iteration card vs CPU; TestModel's resnet
+     forward card vs CPU in f32 (2e-3), then its images/s in f32 and bf16
+     with exact launches;
+ 18. a JSON line of per-kernel results (launches: the DSGAN train step's),
      the card line, and the last line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
@@ -2246,14 +2272,16 @@ DSGAN_RECIPE = Recipe(TRAIN_FLAGS, TRAIN_NAME, ['--pool_size', '0',
 
 
 def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
-                    floor_factor, card_flags, recipe=DSGAN_RECIPE):
+                    floor_factor, card_flags, recipe=DSGAN_RECIPE,
+                    batch=None):
     extra = ['--compute_dtype', dtype] + recipe.extra
     # the CPU models, built after the card's step, turn the kernels back on
     card = create_model(TrainOptions().parse(
         recipe.flags + ON_CARD + extra + card_flags
         + ['--name', recipe.name + tag]))
     recipe.draws(card)
-    batch = fixed_batch(seed=5)
+    if batch is None:
+        batch = fixed_batch(seed=5)
     weights = {label: {k: v.cpu().clone()
                         for k, v in net.state_dict().items()}
                for label, net in card.nets().items()}
@@ -2969,6 +2997,63 @@ def _in_key(kv):
     return (kv[0][0], str(kv[0][1]))
 
 
+def _sites_got(b):
+    """A record_step_sites book's calls by wrapper, as the launch counts
+    name them."""
+    return {'conv4s2': sum(b['conv4s2'].values()),
+            'convt4s2': sum(b['ConvT4s2'].values())
+            + sum(b['conv4s2_dx'].values()),
+            'instance_norm_act': sum(b['InstanceNormAct'].values()),
+            'instance_norm_bwd': sum(b['instance_norm_bwd'].values())}
+
+
+def report_sites(paths, want_of, known):
+    """Each path's recorded calls (``paths``: record_step_sites books)
+    against ``want_of[path]``, the launches written from the nets'
+    structure; then the sites no book of ``known`` has, printed, each conv
+    site with its tc_plan checked (the kernel's split and route) and each
+    IN shape with its in_plan (both dtypes and directions).  Returns those
+    sites' books in train_cases' keys."""
+    width = max(len(p) for p in paths)
+    for path, b in paths.items():
+        got = _sites_got(b)
+        want = {k: want_of[path].get(k, 0) for k in got}
+        check(got == want, '%s: recorded calls %s, expected %s'
+              % (path, got, want))
+        print('  %-*s calls %s' % (width, path, got))
+    new = {k: collections.Counter() for k in NEW_KINDS}
+    for b in paths.values():
+        for kind in NEW_KINDS:
+            for key, c in b[kind].items():
+                if not any(key in k[kind] for k in known):
+                    new[kind][key] += c
+    for (xs, ws, has_b), c in sorted(new['conv4s2'].items()):
+        check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
+        print('  new site conv4s2      %d->%d @%dx%d%s x%d' % (
+            xs[1], ws[0], xs[2], xs[3], ' +b' if has_b else '', c))
+    for (xs, ws, has_b), c in sorted(new['ConvT4s2'].items()):
+        check_convt4s2_plan(xs[0], xs[1], ws[1], xs[2], xs[3])
+        print('  new site convt4s2     %d->%d @%dx%d%s x%d' % (
+            xs[1], ws[1], xs[2], xs[3], ' +b' if has_b else '', c))
+    for (gs, ws), c in sorted(new['conv4s2_dx'].items()):
+        check_convt4s2_plan(gs[0], gs[1], ws[1], gs[2], gs[3])
+        print('  new site convt4s2 dx  %d->%d @%dx%d x%d' % (
+            gs[1], ws[1], gs[2], gs[3], c))
+    for kind in ('InstanceNormAct', 'instance_norm_bwd'):
+        for (xs, slope), c in sorted(new[kind].items(), key=_in_key):
+            print('  new site %-17s %d @%dx%d slope %s x%d' % (
+                kind, xs[1], xs[2], xs[3], slope, c))
+    for shape in sorted({xs for kind in ('InstanceNormAct',
+                                         'instance_norm_bwd')
+                         for xs, _ in new[kind]}):
+        print('  IN plan %-20s %s' % (shape, _plan_text(
+            check_in_plan(*shape))))
+    return {'conv3x3_dw': {}, 'conv3x3_dx': {}, 'conv4s2': new['conv4s2'],
+            'convt4s2_f2': new['ConvT4s2'], 'conv4s2_dx': new['conv4s2_dx'],
+            'InstanceNormAct': new['InstanceNormAct'],
+            'instance_norm_bwd': new['instance_norm_bwd']}
+
+
 def phase_new_sites(dsgan_books):
     """The kernel sites of one f32 cgan step (CGAN_FLAGS) and of one
     segmentation step and val forward (SEG_ARCH), recorded as the DSGAN
@@ -2994,56 +3079,9 @@ def phase_new_sites(dsgan_books):
     del seg
     gc.collect()
     torch.cuda.empty_cache()
-    for path, per in (('cgan step', CGAN_PER_STEP),
-                      ('segmentation step', SEG_PER_STEP),
-                      ('segmentation forward', SEG_PER_FORWARD)):
-        b = paths[path]
-        got = {'conv4s2': sum(b['conv4s2'].values()),
-               'convt4s2': sum(b['ConvT4s2'].values())
-               + sum(b['conv4s2_dx'].values()),
-               'instance_norm_act': sum(b['InstanceNormAct'].values()),
-               'instance_norm_bwd': sum(b['instance_norm_bwd'].values())}
-        want = dict({k: 0 for k in got}, **per)
-        check(got == want, '%s: recorded calls %s, expected %s'
-              % (path, got, want))
-        print('  %-20s calls %s' % (path, got))
-    dsgan = {'conv4s2': dsgan_books['conv4s2'],
-             'ConvT4s2': dsgan_books['ConvT4s2'],
-             'conv4s2_dx': dsgan_books['conv4s2_dx'],
-             'InstanceNormAct': dsgan_books['InstanceNormAct'],
-             'instance_norm_bwd': dsgan_books['instance_norm_bwd']}
-    new = {k: collections.Counter() for k in NEW_KINDS}
-    for b in paths.values():
-        for kind in NEW_KINDS:
-            for key, c in b[kind].items():
-                if key not in dsgan[kind]:
-                    new[kind][key] += c
-    for (xs, ws, has_b), c in sorted(new['conv4s2'].items()):
-        check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
-        print('  new site conv4s2      %d->%d @%dx%d%s x%d' % (
-            xs[1], ws[0], xs[2], xs[3], ' +b' if has_b else '', c))
-    for (xs, ws, has_b), c in sorted(new['ConvT4s2'].items()):
-        check_convt4s2_plan(xs[0], xs[1], ws[1], xs[2], xs[3])
-        print('  new site convt4s2     %d->%d @%dx%d%s x%d' % (
-            xs[1], ws[1], xs[2], xs[3], ' +b' if has_b else '', c))
-    for (gs, ws), c in sorted(new['conv4s2_dx'].items()):
-        check_convt4s2_plan(gs[0], gs[1], ws[1], gs[2], gs[3])
-        print('  new site convt4s2 dx  %d->%d @%dx%d x%d' % (
-            gs[1], ws[1], gs[2], gs[3], c))
-    for kind in ('InstanceNormAct', 'instance_norm_bwd'):
-        for (xs, slope), c in sorted(new[kind].items(), key=_in_key):
-            print('  new site %-17s %d @%dx%d slope %s x%d' % (
-                kind, xs[1], xs[2], xs[3], slope, c))
-    for shape in sorted({xs for kind in ('InstanceNormAct',
-                                         'instance_norm_bwd')
-                         for xs, _ in new[kind]}):
-        print('  IN plan %-20s %s' % (shape, _plan_text(
-            check_in_plan(*shape))))
-    books = {'conv3x3_dw': {}, 'conv3x3_dx': {}, 'conv4s2': new['conv4s2'],
-             'convt4s2_f2': new['ConvT4s2'], 'conv4s2_dx': new['conv4s2_dx'],
-             'InstanceNormAct': new['InstanceNormAct'],
-             'instance_norm_bwd': new['instance_norm_bwd']}
-    return books, paths
+    want_of = {'cgan step': CGAN_PER_STEP, 'segmentation step': SEG_PER_STEP,
+               'segmentation forward': SEG_PER_FORWARD}
+    return report_sites(paths, want_of, [dsgan_books]), paths
 
 
 def new_site_cases(books):
@@ -3099,26 +3137,29 @@ def cgan_chunked_train():
                 replay_ms_per_step=replay_ms, launches=counts)
 
 
-def phase_cgan_sampler(trained, samples=4):
-    """The conditional sampler entry point on the trained cgan run's G over
-    the segmentation set's test images (bf16): launch counts, finite
-    outputs, real_A and fake_B written per input, images/s."""
-    d = os.path.join(RESULTS_DIR, 'cgan_sampler')
+def phase_cgan_sampler(trained, samples=4, flags=CGAN_SAMPLER,
+                       label='cgan'):
+    """The conditional sampler entry point on a trained run of a cgan
+    recipe (``flags``: its architecture; the generator from the label,
+    CGAN_PER_SAMPLE's launches a sample) over the segmentation set's test
+    images (bf16): launch counts, finite outputs, real_A and fake_B
+    written per input, images/s."""
+    d = os.path.join(RESULTS_DIR, label + '_sampler')
     K.reset_launch_counts()
-    r = sampler.main(CGAN_SAMPLER + ON_CARD + [
+    r = sampler.main(flags + ON_CARD + [
         '--name', trained, '--how_many', str(samples), '--results_dir', d])
     torch.cuda.synchronize()
     counts = K.launch_counts()
     check(counts == expected(CGAN_PER_SAMPLE, samples),
-          'cgan sampler: launches %s, expected %s' % (
-              counts, expected(CGAN_PER_SAMPLE, samples)))
+          '%s sampler: launches %s, expected %s' % (
+              label, counts, expected(CGAN_PER_SAMPLE, samples)))
     check(r['samples'] == samples and r['nonfinite'] == 0,
-          'cgan sampler: %d samples, %d non-finite' % (r['samples'],
-                                                       r['nonfinite']))
+          '%s sampler: %d samples, %d non-finite' % (
+              label, r['samples'], r['nonfinite']))
     names = sorted(os.listdir(os.path.join(r['web_dir'], 'images')))
     want = sorted('%03d_%s.png' % (i, v) for i in range(samples)
                   for v in ('real_A', 'fake_B'))
-    check(names == want, 'cgan sampler: images %s' % names)
+    check(names == want, '%s sampler: images %s' % (label, names))
     out = dict(samples=samples, launches=counts,
                images_per_second=samples / r['loop_seconds'],
                drawing_images_per_second=samples / r['sample_seconds'],
@@ -3131,40 +3172,52 @@ def phase_cgan_sampler(trained, samples=4):
     return out
 
 
-def _cgan_draws(model):
-    """Every GaussianNoise of the cgan's G draws from one CPU generator of
-    seed 13, on the model's device: the same draws, call by call, on every
+def _gauss_draws(model):
+    """Every GaussianNoise of every G draws from one CPU generator of seed
+    13, on the model's device: the same draws, call by call, on every
     model."""
     gen = torch.Generator().manual_seed(13)
 
     def draw(shape, dtype, device):
         return torch.randn(shape, generator=gen).to(device=device,
                                                      dtype=dtype)
-    for m in model.netG.modules():
-        if isinstance(m, tnn.GaussianNoise):
-            m.draw = draw
+    for net in model.nets().values():
+        for m in net.modules():
+            if isinstance(m, tnn.GaussianNoise):
+                m.draw = draw
 
 
-def _cgan_step_in_parts(model, d_from=None):
-    """One cgan iteration's first G update: the recorded forward, the D
-    update, then (with ``d_from``, the D bank taking d_from's parameters)
-    the G update.  Returns the four loss terms; the D update's gradients
-    stay in the D bank's .grad."""
+def _d_g_step_in_parts(model, d_from=None):
+    """One iteration's first G update of a recipe with a D update and a G
+    update (update_D / update_D2, update_G): the recorded forward, the D
+    update, then (with ``d_from``, every D bank taking d_from's parameters)
+    the G update.  Returns the loss terms."""
     taps = model._record()
-    d_real, d_fake = model.update_D(taps)
+    update_d = getattr(model, 'update_D2', None) or model.update_D
+    d = update_d(taps)
     if d_from is not None:
         with torch.no_grad():
-            for p, q in zip(model.netD.parameters(),
-                            d_from.netD.parameters()):
-                p.copy_(q)
-    total, l1 = model.update_G(taps)
-    return {'D_real': float(d_real), 'D_fake': float(d_fake),
-            'G_GAN': float(total), 'G_L1': float(l1)}
+            for label, net in model.nets().items():
+                if label.startswith('D'):
+                    for p, q in zip(net.parameters(),
+                                    d_from.nets()[label].parameters()):
+                        p.copy_(q)
+    g = model.update_G(taps)
+    out = {}
+    for side, v in (('D', d), ('G', g)):
+        if isinstance(v, dict):
+            out.update({k: float(x) for k, x in v.items()})
+        elif isinstance(v, tuple):
+            out.update({'%s%d' % (side, i): float(x)
+                        for i, x in enumerate(v)})
+        elif v is not None:
+            out[side] = float(v)
+    return out
 
 
 CGAN_RECIPE = Recipe(CGAN_FLAGS, CGAN_NAME, ['--pool_size', '0',
                                              '--no_dropout'],
-                     _cgan_draws, _cgan_step_in_parts)
+                     _gauss_draws, _d_g_step_in_parts)
 
 
 def phase_cgan_reference_step():
@@ -3388,44 +3441,7 @@ def phase_ts_sites(dsgan_books, stage1_name):
     del g
     torch.cuda.empty_cache()
     want_of = dict(TS_PER_STEP, recon=RECON_PER_GRAD_EVAL)
-    for path, b in paths.items():
-        got = {'conv4s2': sum(b['conv4s2'].values()),
-               'convt4s2': sum(b['ConvT4s2'].values())
-               + sum(b['conv4s2_dx'].values()),
-               'instance_norm_act': sum(b['InstanceNormAct'].values()),
-               'instance_norm_bwd': sum(b['instance_norm_bwd'].values())}
-        want = {k: want_of[path].get(k, 0) for k in got}
-        check(got == want, '%s: recorded calls %s, expected %s'
-              % (path, got, want))
-        print('  %-18s calls %s' % (path, got))
-    new = {k: collections.Counter() for k in NEW_KINDS}
-    for b in paths.values():
-        for kind in NEW_KINDS:
-            for key, c in b[kind].items():
-                if key not in dsgan_books[kind]:
-                    new[kind][key] += c
-    for (xs, ws, has_b), c in sorted(new['conv4s2'].items()):
-        check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
-        print('  new site conv4s2      %d->%d @%dx%d%s x%d' % (
-            xs[1], ws[0], xs[2], xs[3], ' +b' if has_b else '', c))
-    for (xs, ws, has_b), c in sorted(new['ConvT4s2'].items()):
-        check_convt4s2_plan(xs[0], xs[1], ws[1], xs[2], xs[3])
-        print('  new site convt4s2     %d->%d @%dx%d%s x%d' % (
-            xs[1], ws[1], xs[2], xs[3], ' +b' if has_b else '', c))
-    for (gs, ws), c in sorted(new['conv4s2_dx'].items()):
-        check_convt4s2_plan(gs[0], gs[1], ws[1], gs[2], gs[3])
-        print('  new site convt4s2 dx  %d->%d @%dx%d x%d' % (
-            gs[1], ws[1], gs[2], gs[3], c))
-    for kind in ('InstanceNormAct', 'instance_norm_bwd'):
-        for (xs, slope), c in sorted(new[kind].items(), key=_in_key):
-            check_in_plan(*xs)
-            print('  new site %-17s %d @%dx%d slope %s x%d' % (
-                kind, xs[1], xs[2], xs[3], slope, c))
-    books = {'conv3x3_dw': {}, 'conv3x3_dx': {}, 'conv4s2': new['conv4s2'],
-             'convt4s2_f2': new['ConvT4s2'], 'conv4s2_dx': new['conv4s2_dx'],
-             'InstanceNormAct': new['InstanceNormAct'],
-             'instance_norm_bwd': new['instance_norm_bwd']}
-    return books, paths
+    return report_sites(paths, want_of, [dsgan_books]), paths
 
 
 def chunk_driver(path):
@@ -3594,6 +3610,380 @@ def phase_recon(stage1_name):
                 nll=r['nll'], nll_init=r['nll_init'], evals=dict(evals),
                 launches=counts, line=line)
 
+
+
+# ------ the last recipes: the cgan family, segmentation_cycle, TestModel -- #
+
+LAST_NAME = 'chip_smoke_last'
+UNALIGNED_DATA = os.path.join(RESULTS_DIR, 'unaligned_data')
+FAKE_LABELS = 4
+LAST_STEPS = 3
+FAMILY_ROOTS = collections.OrderedDict([
+    ('cgan_cycle', ('single', DATA_DIR)),
+    ('cgan2', ('unaligned', UNALIGNED_DATA)),
+    ('cgan2_cycle', ('unaligned', UNALIGNED_DATA)),
+    ('cgan_causal', ('unaligned', UNALIGNED_DATA))])
+
+
+def cycle_nets(width='64'):
+    """The cycle recipes' nets in the suffixed flags at CGAN_FLAGS' widths
+    (tools/bench_extra.py:54-68): G1 its unet_256 (dropout; the injected
+    Gaussian noise, which --add_gaussian_noise gives every G), D1 its
+    2-scale bank (n_layers 3 and 4, BCE), G2 (and cgan_causal's LG) a
+    unet_256 from the image back to the label, at its lr."""
+    return ['--which_model_netG1', 'unet_256', '--ngf1', width,
+            '--which_model_netG2', 'unet_256', '--ngf2', width,
+            '--which_model_netD1', 'n_layers', '--n_layers_D1', '3', '4',
+            '--ndf1', width, '--scale_factor1', '1', '1',
+            '--lambda_D1', '0.5', '0.5', '--no_lsgan1',
+            '--lr1', '0.00002', '--lr2', '0.00002']
+
+
+def family_args(model, width='64'):
+    """CGAN_FLAGS with --model ``model`` on its dataset (the synthetic set,
+    or the unaligned one); cgan2 keeps the plain flags' nets, the cycle
+    recipes take cycle_nets.  ``width``: every net's ngf / ndf."""
+    mode, root = FAMILY_ROOTS[model]
+    args = _with(CGAN_FLAGS, model=model, dataset_mode=mode, dataroot=root,
+                 name='%s_%s' % (LAST_NAME, model), ngf=width, ndf=width)
+    return args if model == 'cgan2' else args + cycle_nets(width)
+
+
+def family_per_step(runs, records, g_updates, backprop, stem_dx):
+    """Launches of one step of a cgan family recipe, from the nets'
+    structure (G256_* and the D bank's CG_D_*, as CGAN_PER_STEP): each of
+    ``records`` recorded forwards runs ``runs`` unet_256s (the first, one
+    after each of the ``g_updates`` G updates, the last without a graph);
+    the D update as cgan's; a G update runs the bank once with every dx,
+    then backpropagates through the ``backprop`` G runs its loss reaches:
+    the dx of each one's convt4s2 (conv4s2) and of its conv4s2 past the
+    stem (convt4s2), plus the stem's for the ``stem_dx`` runs whose input
+    came from G1, and every IN backward."""
+    fwd = runs * records
+    return {'conv4s2': (fwd * G256_DOWN + 2 * CG_D_CONV
+                        + g_updates * (CG_D_CONV + backprop * G256_UP)),
+            'convt4s2': (fwd * G256_UP + 2 * (CG_D_CONV - CG_D_STEMS)
+                         + g_updates * (CG_D_CONV + backprop * (G256_DOWN - 1)
+                                        + stem_dx)),
+            'instance_norm_act': (fwd * G256_IN + 2 * CG_D_CONV
+                                  + g_updates * CG_D_CONV),
+            'instance_norm_bwd': (2 * CG_D_CONV + g_updates * (
+                CG_D_CONV + backprop * G256_IN))}
+
+
+# n_update_G 2 (CGAN_FLAGS), cgan_causal's updates fixed at 1.  A forward:
+# cgan_cycle G1(A), G2(B), G2(G1(A)); cgan2 G(A) and G(fake A), its loss
+# reaching G(A) alone; cgan2_cycle and cgan_causal G1 on both labels, G2 on
+# B and on both of G1's images (LG never runs).
+FAMILY_PER_STEP = {'cgan_cycle': family_per_step(3, 3, 2, 3, 1),
+                   'cgan2': family_per_step(2, 3, 2, 1, 0),
+                   'cgan2_cycle': family_per_step(5, 3, 2, 5, 2),
+                   'cgan_causal': family_per_step(5, 1, 1, 5, 2)}
+FAMILY_NETS = {'cgan_cycle': ('G1', 'G2', 'D1_0', 'D1_1'),
+               'cgan2': ('G', 'D_0', 'D_1'),
+               'cgan2_cycle': ('G1', 'G2', 'D1_0', 'D1_1'),
+               'cgan_causal': ('G1', 'G2', 'LG', 'D1_0', 'D1_1')}
+
+# segmentation_cycle: SEG_ARCH's G (unet_128 ngf 16, b -> the rg classes)
+# as G1, the same unet back to the image as G2, and a 1-scale D2 ndf 16 of
+# n_layers 2 on (label, image) pairs, __graft_entry__.py:245-262's pairing
+# and lambdas at 512 px and SEG_ARCH's widths; f32
+SEGC_NAME = 'chip_smoke_segc'
+SEGC_ARCH = _with(SEG_ARCH, model='segmentation_cycle', name=SEGC_NAME) + [
+    '--which_model_netG1', 'unet_128', '--ngf1', '16', '--noise_nc1', '4',
+    '--noiseSize1', '4', '--which_model_netG2', 'unet_128', '--ngf2', '16',
+    '--noise_nc2', '4', '--noiseSize2', '4']
+SEGC_TRAIN = ['--which_model_netD2', 'n_layers', '--n_layers_D2', '2',
+              '--ndf2', '16', '--scale_factor2', '1', '--lambda_D2', '0.5',
+              '--no_lsgan2', '--lambda_A', '10', '--lambda_B', '1',
+              '--lambda_A_cycle', '1', '--cache_data']
+# one step: G1(A), G2(B), G2(G1(A)) forward (F2_* is a unet_128's); D2
+# (2 k4 s2 convs, 1 a stem, 2 IN) on the pooled fake and the real pair;
+# the G update: D2 once with every dx, then back through the three runs
+# (the stem's dx for G2(G1(A)) alone).  A val or test forward: G1 once.
+D2C_CONV, D2C_STEMS = 2, 1
+SEGC_PER_STEP = {
+    'conv4s2': 3 * F2_DOWN + 2 * D2C_CONV + D2C_CONV + 3 * F2_UP,
+    'convt4s2': (3 * F2_UP + 2 * (D2C_CONV - D2C_STEMS) + D2C_CONV
+                 + 3 * (F2_DOWN - 1) + 1),
+    'instance_norm_act': 3 * F2_IN + 2 * D2C_CONV + D2C_CONV,
+    'instance_norm_bwd': 2 * D2C_CONV + D2C_CONV + 3 * F2_IN}
+SEGC_PER_FORWARD = SEG_PER_FORWARD
+
+# --model test: resnet_9blocks ngf 64 (the option default), without
+# dropout (a Dropout shifts the blocks' state_dict keys), at 512 px; its
+# convolutions (7x7, 3x3 s2 and reflect-padded 3x3 p0, k3 transposed) take
+# the library, as they take XLA in the JAX package: the IN kernels alone,
+# the stem's, the two downsamples', two in each of the 9 blocks and the two
+# upsamples'
+RESNET_NAME = 'chip_smoke_resnet'
+RESNET_PER_FORWARD = {'instance_norm_act': 1 + 2 + 2 * 9 + 2}
+RESNET_ARCH = ['--dataroot', SEG_DATA, '--name', RESNET_NAME, '--model',
+               'test', '--dataset_mode', 'single', '--which_model_netG',
+               'resnet_9blocks', '--ngf', '64', '--norm', 'instance',
+               '--no_dropout', '--loadSize', '512', '--fineSize', '512',
+               '--manualSeed', '0', '--checkpoints_dir', CKPT_DIR,
+               '--display_id', '0']
+RESNET_FORWARDS = 8
+
+
+def write_unaligned_set():
+    """UNALIGNED_DATA/trainA: the synthetic set's TRAIN_IMAGES label and
+    image PNGs; trainB: FAKE_LABELS 1024^2 fake labels (sparse binary
+    maps in R and G, as a stage-1 G would write them)."""
+    a_dir = os.path.join(UNALIGNED_DATA, 'trainA')
+    b_dir = os.path.join(UNALIGNED_DATA, 'trainB')
+    os.makedirs(a_dir, exist_ok=True)
+    os.makedirs(b_dir, exist_ok=True)
+    src = os.path.join(DATA_DIR, 'train')
+    for name in sorted(os.listdir(src)):
+        shutil.copy(os.path.join(src, name), a_dir)
+    rng = np.random.RandomState(2)
+    for i in range(FAKE_LABELS):
+        a = np.zeros((1024, 1024, 3), np.uint8)
+        a[..., 0] = (rng.rand(1024, 1024) > 0.6) * 255
+        a[..., 1] = (rng.rand(1024, 1024) > 0.85) * 255
+        Image.fromarray(a).save(os.path.join(b_dir, 'fake_%03d.png' % i))
+
+
+def save_resnet_weights():
+    """resnet_9blocks ngf 64 (3 -> 3, no dropout) from seed 3 as
+    RESNET_NAME's latest_net_G.pth."""
+    net = tnn.define_G(3, 3, 64, 'resnet_9blocks', 'instance', False,
+                       generator=torch.Generator().manual_seed(3))
+    d = os.path.join(CKPT_DIR, RESNET_NAME)
+    os.makedirs(d, exist_ok=True)
+    pth.save_pth(os.path.join(d, 'latest_net_G.pth'), net)
+
+
+def unaligned_batch(seed=0):
+    """fixed_batch with a B image: another label pair in R and G."""
+    b = fixed_batch(seed=seed)
+    b['B'] = fixed_batch(seed=seed + 100)['A']
+    b['B_paths'] = ['synthetic_B.png']
+    return b
+
+
+def phase_last_sites(known):
+    """The kernel sites of one f32 step of each cgan family recipe (full
+    width), of one segmentation_cycle step and val forward, and of one
+    resnet_9blocks forward through TestModel, recorded as
+    record_step_sites does; their totals against FAMILY_PER_STEP,
+    SEGC_PER_STEP, SEGC_PER_FORWARD and RESNET_PER_FORWARD; the sites no
+    earlier path has (``known``: their books), printed, each with its plan
+    checked.  Returns (those sites' books in train_cases' keys, the
+    per-path books)."""
+    paths, want_of = {}, {}
+    for model, per in FAMILY_PER_STEP.items():
+        m = create_model(TrainOptions().parse(family_args(model) + ON_CARD + [
+            '--compute_dtype', 'float32', '--name',
+            '%s_%s_sites' % (LAST_NAME, model)]))
+        m.set_input(unaligned_batch())
+        paths[model] = record_step_sites(m.optimize_parameters)
+        want_of[model] = per
+        del m
+        gc.collect()
+    m = create_model(TrainOptions().parse(SEGC_ARCH + SEGC_TRAIN + ON_CARD + [
+        '--name', SEGC_NAME + '_sites']))
+    m.set_input(fixed_batch())
+    paths['segmentation_cycle step'] = record_step_sites(
+        m.optimize_parameters)
+    paths['segmentation_cycle forward'] = record_step_sites(
+        lambda: m.forward(val_mode=True))
+    want_of['segmentation_cycle step'] = SEGC_PER_STEP
+    want_of['segmentation_cycle forward'] = SEGC_PER_FORWARD
+    del m
+    m = create_model(TestOptions().parse(RESNET_ARCH + ON_CARD))
+    m.set_input(fixed_batch())
+    paths['resnet forward'] = record_step_sites(m.test)
+    want_of['resnet forward'] = RESNET_PER_FORWARD
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report_sites(paths, want_of, known), paths
+
+
+def family_reference_step(model):
+    """One f32 iteration of a cgan family recipe at 512 px, card (kernels)
+    vs CPU (plain versions), as phase_cgan_reference_step holds cgan's:
+    losses 1e-3, gradients within max(5e-2, 2 x floor) in L2; no pool, no
+    dropout.  cgan2_cycle at CGAN_FLAGS' widths, the others at ngf / ndf
+    16."""
+    width = '64' if model == 'cgan2_cycle' else '16'
+    recipe = Recipe(family_args(model, width), '%s_%s' % (LAST_NAME, model),
+                    ['--pool_size', '0', '--no_dropout', '--no_dropout1',
+                     '--no_dropout2'], _gauss_draws, _d_g_step_in_parts)
+    return _reference_step((), '_ref', 'float32', loss_tol=1e-3,
+                           grad_tol=5e-2, floor_factor=2, card_flags=[],
+                           recipe=recipe, batch=unaligned_batch(seed=5))
+
+
+def family_bench(model):
+    """The bench entry point on a recipe's command (bf16, kernels): per
+    step and chunked rates, device ms, busy share, held as the bench
+    phase's arms with FAMILY_PER_STEP's launches."""
+    base = family_args(model)
+    return _bench_arms(((model + ' kernels bf16', []),),
+                       lambda flags, **kw: bench.main(
+                           flags, base=base, metric_name=model, **kw),
+                       FAMILY_PER_STEP[model])
+
+
+def phase_cgan_family():
+    """Each cgan family recipe on its command (bf16): LAST_STEPS steps
+    through the train entry point (exact launches, finite losses, its
+    checkpoints), the bench's record, one f32 iteration card vs CPU; for
+    cgan_cycle also CHUNK_STEPS chunked steps bitwise equal to eager ones
+    under deterministic algorithms and the conditional sampler on the
+    trained run."""
+    out = {}
+    for model, per in FAMILY_PER_STEP.items():
+        name = '%s_%s_bfloat16' % (LAST_NAME, model)
+        r = dict(train=run_train(
+            family_args(model) + ON_CARD + _epoch_flags(
+                name, 'bfloat16', LAST_STEPS)
+            + ['--display_freq', str(LAST_STEPS), '--save_epoch_freq', '1'],
+            name, LAST_STEPS, per, FAMILY_NETS[model]))
+        r['bench'] = family_bench(model)
+        if model == 'cgan_cycle':
+            det = _chunk_runs_deterministic(
+                'bfloat16', make=lambda dt, label: create_model(
+                    TrainOptions().parse(family_args(model) + ON_CARD + [
+                        '--compute_dtype', dt, '--name',
+                        '%s_chunk_%s' % (LAST_NAME, label)])))
+            for what in ('eager_spread', 'chunked'):
+                d = det[what]
+                check(d['differ'] == 0 and not any(d['losses'].values()),
+                      'cgan_cycle: %s under deterministic algorithms: %d '
+                      'tensors differ (worst %s), losses %s' % (
+                          what, d['differ'], d['name'], d['losses']))
+            r['chunk_equals_eager'] = det
+            r['sampler'] = phase_cgan_sampler(
+                name, flags=_with(CGAN_SAMPLER, model='cgan_cycle')
+                + cycle_nets()[:8], label='cgan_cycle')
+        print('  %s: one f32 iteration, card vs CPU' % model)
+        r['reference_step'] = family_reference_step(model)
+        out[model] = r
+    return out
+
+
+def phase_segmentation_cycle():
+    """train_ss at SEGC_ARCH for LAST_STEPS steps with validation on the 2
+    val images and the best meanIU checkpoint, then test_ss on it over the
+    4 test images: exact launch counts, RandScore and meanIU finite and
+    within [0, 1], the cross entropy finite, the step time and the test
+    images/s; the step through bench.main (f32, kernels), held as the
+    bench's arms; one f32 iteration card vs CPU (losses 1e-3, gradients
+    within max(5e-2, 2 x floor) in L2; no pool, no dropout)."""
+    K.reset_launch_counts()
+    r = train_ss.main(SEGC_ARCH + SEGC_TRAIN + ON_CARD + [
+        '--niter', '1', '--niter_decay', '0', '--print_freq', '1',
+        '--display_freq', '100', '--save_epoch_freq', '1',
+        '--best_metric', 'meanIU', '--max_dataset_size', str(LAST_STEPS)])
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    n_val = SEG_SPLITS[1][1]
+    want = expected(_plus(*[SEGC_PER_STEP] * LAST_STEPS
+                          + [SEGC_PER_FORWARD] * n_val), 1)
+    check(counts == want, 'segmentation_cycle train_ss: launches %s, '
+          'expected %s' % (counts, want))
+    check(r['steps'] == LAST_STEPS and len(r['val_accs']) == 1,
+          'segmentation_cycle train_ss: %d steps, val %s'
+          % (r['steps'], r['val_accs']))
+    _accs_in_range(r['val_accs'][0], 'segmentation_cycle train_ss val')
+    run_dir = os.path.join(CKPT_DIR, SEGC_NAME)
+    check({'best_net_G1.pth', 'best_net_G2.pth', 'best_net_D2_0.pth',
+           'latest_state.pt'} <= set(os.listdir(run_dir)),
+          'segmentation_cycle train_ss: checkpoints missing')
+    step_ms = [1e3 * t for t in r['step_seconds']]
+    K.reset_launch_counts()
+    t = test_ss.main(SEGC_ARCH + ON_CARD + [
+        '--which_epoch', 'best', '--results_dir',
+        os.path.join(RESULTS_DIR, 'segc_test')])
+    torch.cuda.synchronize()
+    test_counts = K.launch_counts()
+    n_test = SEG_SPLITS[2][1]
+    check(test_counts == expected(SEGC_PER_FORWARD, n_test),
+          'segmentation_cycle test_ss: launches %s, expected %s' % (
+              test_counts, expected(SEGC_PER_FORWARD, n_test)))
+    check(t['images'] == n_test and np.isfinite(t['ce_mean']),
+          'segmentation_cycle test_ss: %d images, cross entropy %s'
+          % (t['images'], t['ce_mean']))
+    _accs_in_range(t['accs'], 'segmentation_cycle test_ss')
+    print('  train_ss: %d steps, first %.1f ms, median of the rest %.1f ms; '
+          'val %s; test_ss: %d images, %.3f images/s, %s, cross entropy '
+          '%.4f' % (r['steps'], step_ms[0], statistics.median(step_ms[1:]),
+                    r['val_accs'][0], n_test, n_test / t['test_seconds'],
+                    t['accs'], t['ce_mean']))
+    bench_rec = _bench_arms(
+        (('segmentation_cycle kernels f32', []),),
+        lambda flags, **kw: bench.main(
+            flags, base=SEGC_ARCH + SEGC_TRAIN,
+            metric_name='segmentation_cycle_unet128', **kw), SEGC_PER_STEP)
+    print('  one f32 iteration, card vs CPU')
+    ref = _reference_step((), '_ref', 'float32', loss_tol=1e-3,
+                          grad_tol=5e-2, floor_factor=2, card_flags=[],
+                          recipe=Recipe(SEGC_ARCH + SEGC_TRAIN, SEGC_NAME, [
+                              '--pool_size', '0', '--no_dropout1',
+                              '--no_dropout2'], lambda m: None,
+                              _d_g_step_in_parts))
+    return dict(train_steps=r['steps'], train_step_ms=step_ms,
+                median_train_step_ms=statistics.median(step_ms[1:]),
+                val_accs=r['val_accs'], best=r['best'], train_launches=counts,
+                test_images=t['images'], test_accs=t['accs'],
+                ce_mean=t['ce_mean'], ce_std=t['ce_std'],
+                test_images_per_second=n_test / t['test_seconds'],
+                test_launches=test_counts, reference_step=ref,
+                bench=bench_rec,
+                launches_per_step=SEGC_PER_STEP,
+                launches_per_forward=SEGC_PER_FORWARD)
+
+
+def phase_resnet_test():
+    """TestModel with resnet_9blocks ngf 64 at 512 px: one forward card
+    (kernels) vs CPU (plain versions) in f32, within 2e-3 of the output;
+    then RESNET_FORWARDS forwards in f32 and in bf16: launches
+    (RESNET_PER_FORWARD a forward), finite outputs, images/s to a
+    synchronize."""
+    batch = fixed_batch(seed=8)
+    outs = []
+    for dev in (ON_CARD, ['--gpu_ids', '-1']):
+        m = create_model(TestOptions().parse(RESNET_ARCH + dev))
+        m.set_input(batch)
+        m.test()
+        outs.append(m.fake_B.float().cpu())
+        del m
+    diff = float((outs[0] - outs[1]).abs().max())
+    print('  f32 forward, card vs CPU: max abs diff %.2e (limit 2e-3)'
+          % diff)
+    check(diff <= 2e-3, 'resnet_9blocks: card vs CPU differ by %.3g' % diff)
+    out = dict(card_vs_cpu_max_abs=diff)
+    for dtype in ('float32', 'bfloat16'):
+        m = create_model(TestOptions().parse(RESNET_ARCH + ON_CARD + [
+            '--compute_dtype', dtype]))
+        m.set_input(batch)
+        m.test()                      # cuDNN's choices, the IN libraries
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        finite = True
+        for _ in range(RESNET_FORWARDS):
+            m.test()
+            finite = finite and bool(torch.isfinite(m.fake_B).all())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+        want = expected(RESNET_PER_FORWARD, RESNET_FORWARDS)
+        check(counts == want and finite, 'resnet_9blocks %s: launches %s, '
+              'expected %s; finite %s' % (dtype, counts, want, finite))
+        out[dtype] = dict(images_per_second=RESNET_FORWARDS / secs,
+                          launches=counts)
+        print('  %s: %d forwards in %.3f s = %.3f images/s; launches %s'
+              % (dtype, RESNET_FORWARDS, secs, RESNET_FORWARDS / secs,
+                 counts))
+        del m
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -3878,6 +4268,26 @@ def main():
     ts_seconds = time.time() - t_ts
     print('two-stage family and recon phases: %.1f s' % ts_seconds)
 
+    print('== the last recipes (the cgan family, segmentation_cycle, '
+          '--model test with resnet_9blocks): their kernel sites, and those '
+          'no earlier path has')
+    t_last = time.time()
+    write_unaligned_set()
+    save_resnet_weights()
+    last_books, last_paths = phase_last_sites(
+        [books] + list(new_paths.values()) + list(ts_paths.values()))
+    print('== kernels vs plain versions at the last recipes\' new sites')
+    per_site_last, agg_last = run_cases(new_site_cases(last_books))
+    print('== the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal; '
+          'tools/bench_extra.py:54-68 widths, 512 px, bf16)')
+    family = phase_cgan_family()
+    print('== segmentation_cycle: train_ss, then test_ss (512 px, f32)')
+    seg_cycle = phase_segmentation_cycle()
+    print('== --model test: resnet_9blocks ngf 64 at 512 px')
+    resnet = phase_resnet_test()
+    last_seconds = time.time() - t_last
+    print('last recipes\' phases: %.1f s' % last_seconds)
+
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
                  'instance_norm_bwd', 'conv4s2', 'conv3x3_in_stats',
@@ -3952,6 +4362,20 @@ def main():
                                      for path, b in ts_paths.items()},
                                  seconds=ts_seconds),
                   recon=recon_run,
+                  last_recipes=dict(
+                      cgan_family=family, segmentation_cycle=seg_cycle,
+                      resnet_test=resnet,
+                      launches_per_step=dict(FAMILY_PER_STEP,
+                                             segmentation_cycle=SEGC_PER_STEP),
+                      launches_per_forward=dict(
+                          segmentation_cycle=SEGC_PER_FORWARD,
+                          resnet_9blocks=RESNET_PER_FORWARD),
+                      sites=per_site_last, site_sums=agg_last,
+                      site_books={
+                          path: {k: {repr(s_): c for s_, c in v.items()}
+                                 for k, v in b.items()}
+                          for path, b in last_paths.items()},
+                      seconds=last_seconds),
                   new_site_books={
                       path: {k: {repr(s_): c for s_, c in v.items()}
                              for k, v in b.items()}

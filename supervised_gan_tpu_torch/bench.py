@@ -146,9 +146,12 @@ def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
             torch.cuda.synchronize(dev)
 
     rng = np.random.RandomState(0)
-    model.set_input({'A': rng.uniform(-1, 1, (
-        opt.batchSize, opt.fineSize, opt.fineSize, 3)).astype(np.float32),
-        'A_paths': ['bench.png'] * opt.batchSize})
+    shape = (opt.batchSize, opt.fineSize, opt.fineSize, 3)
+    # B: the second image of the aligned and unaligned datasets
+    model.set_input({'A': rng.uniform(-1, 1, shape).astype(np.float32),
+                     'B': rng.uniform(-1, 1, shape).astype(np.float32),
+                     'A_paths': ['bench.png'] * opt.batchSize,
+                     'B_paths': ['bench_B.png'] * opt.batchSize})
     for _ in range(WARMUP_STEPS):
         model.optimize_parameters()
     sync()

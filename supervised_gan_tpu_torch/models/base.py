@@ -24,7 +24,8 @@ import os
 import torch
 
 from .graph import StepGraph
-from .pools import decide, draw_decisions, pool_apply, pool_take, sample_rows
+from .pools import (REJECT, decide, draw_decisions, pool_apply, pool_take,
+                    sample_rows)
 from .. import nn
 from ..ops.kernels import set_kernels_enabled
 from ..utils import pth as pthio
@@ -117,6 +118,8 @@ class BaseModel:
                               else torch.float32)
         self.pools = {}
         self.sampled_pools = ()    # pools only read (models/pools.py)
+        self.pool_rejects = {}     # a pool's rejection probability, if not
+        #                            pools.REJECT (cgan2's --pool_reject_prob)
         self.steps_run = 0
         self._rows = None          # this step's pool rows, on the device
         self._graph = None         # the captured step (models/graph.py)
@@ -172,7 +175,8 @@ class BaseModel:
                     rows += sample_rows(pool, n, self.pool_generator)
                 else:
                     rows += decide(pool, draw_decisions(
-                        pool, n, self.pool_generator))
+                        pool, n, self.pool_generator),
+                        self.pool_rejects.get(name, REJECT))
         if not rows:
             return None
         return self.to_device(torch.tensor(rows, dtype=torch.int64)).view(

@@ -34,11 +34,9 @@ from .. import nn
 from ..nn.losses import gan_loss, weighted_l1_loss
 from ..utils.images import tensor2im
 
-METRICS_ORDER = ('G_GAN', 'G_L1', 'D_real', 'D_fake')
-
-
 class CGANModel(PairDiscriminator, TwoGroupModel):
     STEP_OUTPUTS = ('_metrics', 'fake_B')
+    METRICS_ORDER = ('G_GAN', 'G_L1', 'D_real', 'D_fake')
 
     def name(self):
         return 'cGANModel'
@@ -136,7 +134,8 @@ class CGANModel(PairDiscriminator, TwoGroupModel):
         self.fake_B = taps['fake_B'].detach()
 
     def get_current_errors(self):
-        return OrderedDict((k, float(self._metrics[k])) for k in METRICS_ORDER)
+        return OrderedDict((k, float(self._metrics[k]))
+                           for k in self.METRICS_ORDER)
 
     def save(self, label):
         self.save_network(self.netG, 'G', label)

@@ -8,6 +8,7 @@ import torch
 
 from ..nn.generators import CascadedRefinementNetwork
 from ..nn.losses import gan_loss
+from ..ops import reflection_pad
 
 
 def g_apply(net, x, noise, dtype, activation='tanh'):
@@ -34,22 +35,6 @@ def l1_weight_map(real_A, weights):
     for i, wi in enumerate(weights):
         w = w + a[:, i:i + 1] * (wi - 1.0)
     return w
-
-
-def reflection_pad(x, left, right, top, bottom):
-    """ReflectionPad2d of NCHW x by (left, right, top, bottom), each less
-    than the side it pads: F.pad(mode='reflect')'s values, built from
-    slices, flips and one concatenation an axis, so its backward adds no
-    atomics (the library's reflection-pad backward on CUDA does, and is not
-    deterministic)."""
-    def pad(x, dim, lo, hi):
-        parts = [x]
-        if lo:
-            parts.insert(0, x.narrow(dim, 1, lo).flip(dim))
-        if hi:
-            parts.append(x.narrow(dim, x.shape[dim] - 1 - hi, hi).flip(dim))
-        return torch.cat(parts, dim) if len(parts) > 1 else x
-    return pad(pad(x, 3, left, right), 2, top, bottom)
 
 
 def mul_padded(in1, in2):
@@ -90,17 +75,24 @@ def alternate_updates(record, n_update_D, update_D, n_update_G, update_G):
 
 class PairDiscriminator:
     """The D bank ``netD`` (Adam ``optD``) of a conditional recipe: it judges
-    cat(input_A, B), or B alone with --no_cgan; its fakes (``taps['fake_B']``)
-    go through the ``fake`` pool."""
+    cat(input_A, B), or B alone with --no_cgan; its fakes (``fake_pair``,
+    by default the pair of ``taps['fake_B']``) go through the ``fake``
+    pool."""
 
-    def pair(self, b):
-        return b if self.opt.no_cgan else cat_channels(self.input_A, b)
+    def pair(self, b, a=None):
+        """The D input of B, conditioned on ``a`` (default input_A)."""
+        if self.opt.no_cgan:
+            return b
+        return cat_channels(self.input_A if a is None else a, b)
+
+    def fake_pair(self, taps):
+        return self.pair(taps['fake_B'])
 
     def update_D(self, taps):
         """One D update, 0.5 (fake + real), on the pooled fake pair and the
         real pair; returns the (real, fake) loss sums."""
         lsgan = not self.opt.no_lsgan
-        fake = self.query_pool('fake', self.pair(taps['fake_B']).detach())
+        fake = self.query_pool('fake', self.fake_pair(taps).detach())
         real = self.pair(self.input_B)
         loss_fake = sum(gan_loss(o, False, lsgan)
                         for o in self.bank_apply(self.netD, fake))

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from .base import BaseModel, parse_which_channel
+from .common import cat_channels
 from .. import nn
 from ..ops import avg_pool, bilinear_upsample
 
@@ -64,6 +65,11 @@ class TwoGroupModel(BaseModel):
         self.image_paths = input['A_paths' if AtoB else 'B_paths']
         return {'input_A': self._nchw(a, g0), 'input_B': self._nchw(b, g1)}
 
+    def cat_pair(self, a, b):
+        """The D input of (conditioning a, generated b): b alone with
+        --no_cgan."""
+        return b if self.opt.no_cgan else cat_channels(a, b)
+
     # ---------------------------------------------------------- networks -- #
     def build_F(self, in_nc, out_nc, suffix='2'):
         """The F reconstructor: nff / which_model_netF / n_layers_F with the
@@ -102,3 +108,19 @@ class TwoGroupModel(BaseModel):
 
     def lrs(self):
         return {'lr': self.old_lr, 'lr1': self.old_lr1, 'lr2': self.old_lr2}
+
+
+class UnalignedInputs:
+    """set_input of the recipes fed by the unaligned dataset (cgan2,
+    cgan2_cycle, cgan_causal; reference cgan2_model.py:115-126): the A
+    image carries the real label (input_A) and the real image (input_B),
+    the independently indexed B image the stage-1 fake label
+    (input_fake_A)."""
+    STEP_INPUTS = ('input_A', 'input_B', 'input_fake_A')
+
+    def host_inputs(self, input):
+        g0, g1 = self.groups
+        self.image_paths = input['A_paths']
+        return {'input_A': self._nchw(input['A'], g0),
+                'input_B': self._nchw(input['A'], g1),
+                'input_fake_A': self._nchw(input['B'], g0)}

@@ -39,7 +39,6 @@ from collections import OrderedDict
 import torch
 
 from .base import adam, set_lr
-from .common import cat_channels
 from .pools import init_pool, pool_fill
 from .two_group import TwoGroupModel
 from .. import nn
@@ -247,9 +246,6 @@ class TwoStageModel(TwoGroupModel):
 
     def _record(self):
         return self.forward_taps(self.draw_noises())
-
-    def cat_pair(self, a, b):
-        return b if self.opt.no_cgan else cat_channels(a, b)
 
     def pair_of(self, name, taps, detach_label=False):
         """The D2 input of pair ``name`` (real_fake or fake_fake)."""

@@ -41,7 +41,8 @@ import torch
 from torch import nn
 
 from ..ops import (batch_norm, bilinear_upsample, conv2d, conv3x3_in_act,
-                   conv3x3_in_supported, conv_transpose2d, instance_norm_act)
+                   conv3x3_in_supported, conv_transpose2d, instance_norm_act,
+                   reflection_pad)
 from ..ops.kernels import kernels_enabled
 
 _CONV3_IN_FUSED = os.environ.get('SGAN_TPU_CONV3_IN', '0') == '1'
@@ -180,6 +181,19 @@ def set_noise_generator(net, generator):
     for m in net.modules():
         if isinstance(m, (Dropout, GaussianNoise)):
             m.generator = generator
+
+
+class ReflectionPad2d(nn.Module):
+    """ReflectionPad2d by one int on every side (the resnet generator's
+    pads; nn/core.py:422 there)."""
+
+    def __init__(self, padding):
+        super().__init__()
+        self.padding = padding
+
+    def forward(self, x):
+        p = self.padding
+        return reflection_pad(x, p, p, p, p)
 
 
 class Upsample(nn.Module):

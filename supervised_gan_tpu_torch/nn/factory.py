@@ -5,8 +5,7 @@ from .core import BatchNorm2d, InstanceNorm2d, count_params, init_weights
 from . import discriminators as D
 from . import generators as G
 
-_NOT_YET = ('resnet_9blocks', 'resnet_6blocks', 'autoencoder', 'fcgan_star',
-            'dcgan')
+_NOT_YET = ('autoencoder', 'fcgan_star', 'dcgan')
 _NOT_YET_D = ('n_layers_sep', 'dcgan')
 
 
@@ -28,7 +27,11 @@ def define_G(input_nc, output_nc, ngf, which_model_netG, norm='batch',
     weights are initialized from it, else they are left uninitialized for
     a checkpoint to fill."""
     norm_layer = get_norm_layer(norm)
-    if which_model_netG == 'crn':
+    if which_model_netG in ('resnet_9blocks', 'resnet_6blocks'):
+        net = G.ResnetGenerator(
+            input_nc, output_nc, ngf, norm_layer, use_dropout,
+            9 if which_model_netG == 'resnet_9blocks' else 6, use_residual)
+    elif which_model_netG == 'crn':
         net = G.CascadedRefinementNetwork(
             input_nc, output_nc, noise_nc, ngf=ngf, n_layers=n_layers_G,
             norm_layer=norm_layer, upsample_mode=upsample_mode,

@@ -1,9 +1,10 @@
-"""The generators of the DSGAN sampler (NCHW).
+"""The generators of the recipes (NCHW).
 
 Counterparts of supervised_gan_tpu/nn/generators.py: `FCGANGenerator`
 (:41-95), the unet (`UnetSkipConnectionBlock`, `UnetGenerator`, :150-264,
-pixel output only) and the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
-`CascadedRefinementNetwork`, :265-386).  Structure, channel arithmetic,
+pixel output only), the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
+`CascadedRefinementNetwork`, :265-386) and the resnet (`ResnetBlock`,
+`ResnetGenerator`, :389-444).  Structure, channel arithmetic,
 layer order and attribute names match, so parameter counts and state_dict
 keys line up.  Injected Gaussian noise (--add_gaussian_noise) is a
 GaussianNoise module beside a block's ``model``, with no parameters, so the
@@ -14,7 +15,8 @@ import torch
 from torch import nn
 
 from .core import (BatchNorm2d, Conv2d, ConvTranspose2d, Dropout,
-                   GaussianNoise, LeakyReLU, ReLU, Sequential, Upsample)
+                   GaussianNoise, LeakyReLU, ReflectionPad2d, ReLU, Sequential,
+                   Tanh, Upsample)
 from ..ops import avg_pool
 
 
@@ -243,3 +245,63 @@ class CascadedRefinementNetwork(nn.Module):
             l = getattr(self, lname)(avg_pool(label, pool))
             h = getattr(self, hname)(torch.cat([l, h], 1))
         return activate(h, activation)
+
+
+class ResnetBlock(nn.Module):
+    """x + [pad, conv3x3, norm, ReLU, (Dropout), pad, conv3x3, norm](x), the
+    pads reflections by 1 and the convs p0 (reference models/
+    networks.py:272-311)."""
+
+    def __init__(self, dim, padding_type='reflect', norm_layer=BatchNorm2d,
+                 use_dropout=False):
+        super().__init__()
+        if padding_type != 'reflect':
+            raise NotImplementedError('padding [%s] is not implemented'
+                                      % padding_type)
+        layers = [ReflectionPad2d(1), Conv2d(dim, dim, 3, 1, 0),
+                  norm_layer(dim), ReLU()]
+        if use_dropout:
+            layers.append(Dropout(0.5))
+        layers += [ReflectionPad2d(1), Conv2d(dim, dim, 3, 1, 0),
+                   norm_layer(dim)]
+        self.conv_block = Sequential(*layers)
+
+    def forward(self, x):
+        return x + self.conv_block(x)
+
+
+class ResnetGenerator(nn.Module):
+    """Johnson's resnet generator: a reflect-padded 7x7 stem, two 3x3 s2
+    downsamples, n_blocks ResnetBlocks at 4 ngf, two 3x3 s2 transposed
+    upsamples and a reflect-padded 7x7 head (reference models/
+    networks.py:221-268).  Without use_residual the model ends in a Tanh
+    and the forward applies tanh again, as the reference and the JAX
+    package do; the forward's ``activation`` is not read (the output is
+    always tanh'd, generators.py:441-444 there)."""
+
+    def __init__(self, input_nc, output_nc, ngf=64, norm_layer=BatchNorm2d,
+                 use_dropout=False, n_blocks=6, use_residual=False):
+        super().__init__()
+        self.use_residual = use_residual
+        layers = [ReflectionPad2d(3), Conv2d(input_nc, ngf, 7, 1, 0),
+                  norm_layer(ngf), ReLU()]
+        for i in range(2):
+            mult = 2 ** i
+            layers += [Conv2d(ngf * mult, ngf * mult * 2, 3, 2, 1),
+                       norm_layer(ngf * mult * 2), ReLU()]
+        for _ in range(n_blocks):
+            layers.append(ResnetBlock(ngf * 4, 'reflect', norm_layer,
+                                      use_dropout))
+        for i in range(2):
+            mult = 2 ** (2 - i)
+            layers += [ConvTranspose2d(ngf * mult, ngf * mult // 2, 3, 2, 1,
+                                       output_padding=1),
+                       norm_layer(ngf * mult // 2), ReLU()]
+        layers += [ReflectionPad2d(3), Conv2d(ngf, output_nc, 7, 1, 0)]
+        if not use_residual:
+            layers.append(Tanh())
+        self.model = Sequential(*layers)
+
+    def forward(self, x, activation='tanh'):
+        y = self.model(x)
+        return torch.tanh(x + y if self.use_residual else y)

@@ -17,6 +17,7 @@ from supervised_gan_tpu_torch import bench
 from supervised_gan_tpu_torch.ops import kernels as K
 
 from test_torch_train_step import FLAGS
+from test_torch_layout import one_thread  # noqa: F401
 
 ROUTES = {'kernels': [], 'no_pallas': ['--no_pallas']}
 DEVICE_FIELDS = ('device_ms_per_step', 'device_kernels_per_step',

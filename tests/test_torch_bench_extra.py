@@ -14,6 +14,7 @@ import pytest
 from supervised_gan_tpu_torch import bench, bench_extra
 
 from test_torch_bench import DEVICE_FIELDS, RECORD_KEYS
+from test_torch_layout import one_thread  # noqa: F401
 
 
 # each bench_extra configuration cut to narrow widths for the CPU: the

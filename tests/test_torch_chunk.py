@@ -36,6 +36,7 @@ from supervised_gan_tpu_torch.options import TrainOptions as TTrainOptions
 
 import test_torch_fcgan
 import test_torch_train_step
+from test_torch_layout import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

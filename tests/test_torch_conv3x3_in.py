@@ -35,6 +35,7 @@ from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_layout import (assert_sum_close, conv_w, jax_params, nchw,
                                nhwc, rand, vec)
+from test_torch_layout import one_thread  # noqa: F401
 
 # one shape per packing factor P = 128 / C (8, 4, 2, 1), each admitted by
 # the JAX gate in interpret mode

@@ -34,6 +34,7 @@ from supervised_gan_tpu_torch.ops import bilinear_upsample
 from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_layout import jax_params, nchw, nhwc, rand
+from test_torch_layout import one_thread  # noqa: F401
 
 G1_ARGS = (2, 0, 8, 'fcgan', 'instance', False)
 G1_KW = dict(n_layers_G=3, use_fcn=True, noise_nc=4)

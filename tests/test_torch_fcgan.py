@@ -42,6 +42,7 @@ from supervised_gan_tpu_torch.options import TrainOptions as TTrainOptions
 from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_layout import jax_params, nchw, nhwc
+from test_torch_layout import one_thread  # noqa: F401
 
 ARCH = ['--model', 'fcgan', '--which_direction', 'A',
         '--dataset_mode', 'single', '--loadSize', '32', '--fineSize', '32',

@@ -29,6 +29,7 @@ from supervised_gan_tpu_torch.nn import generators as tgen
 from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_layout import jax_params, nchw, nhwc, rand
+from test_torch_layout import one_thread  # noqa: F401
 
 SIGMA = 0.3
 NETS = {

@@ -18,6 +18,18 @@ from supervised_gan_tpu_torch import nn as tnn
 from supervised_gan_tpu_torch.ops.kernels import conv3x3, convt4s2
 
 
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    """The port's CPU ops on one thread while a module that imports this
+    fixture runs: the suite runs six workers on fewer cores, where torch's
+    default thread pool per worker made the port's steps several times
+    slower, and its neighbours too."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def nchw(a):
     """NHWC array (numpy or jax) -> NCHW float torch tensor."""
     return torch.from_numpy(np.ascontiguousarray(

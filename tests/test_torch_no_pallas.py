@@ -51,6 +51,7 @@ from test_torch_test_driver import _args as sampler_args
 from test_torch_test_driver import ckpt_dir  # noqa: F401
 from test_torch_train_step import (BANKS, FLAGS, LR, NETS, _batch,
                                    _port_modules, _sub)
+from test_torch_layout import one_thread  # noqa: F401
 
 FUNCTIONS = ('Conv3x3', 'Conv3x3InAct', 'Conv4s2', 'ConvT4s2',
              'InstanceNormAct')

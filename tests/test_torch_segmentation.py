@@ -42,6 +42,7 @@ from supervised_gan_tpu_torch.options import TrainOptions as TTrainOptions
 from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_layout import jax_params, nchw, nhwc, rand
+from test_torch_layout import one_thread  # noqa: F401
 
 LR = 2e-4
 NET = ['--which_direction', 'AtoB', '--which_model_netG', 'unet_128',

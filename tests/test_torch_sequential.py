@@ -26,6 +26,7 @@ from supervised_gan_tpu_torch.options import TrainOptions as TTrainOptions
 
 from test_torch_layout import jax_params
 from test_torch_train_step import FLAGS as DSGAN_FLAGS
+from test_torch_layout import one_thread  # noqa: F401
 
 STAGE1 = ['--dataroot', './datasets/unused', '--name', 'stage1',
           '--model', 'fcgan', '--which_direction', 'A',

@@ -18,8 +18,11 @@ from supervised_gan_tpu_torch import test as ttest
 from supervised_gan_tpu_torch.options import base_options
 
 from test_torch_layout import jax_params
+from test_torch_layout import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the subprocess's torch on one thread, as one_thread sets it in-process
+ONE_THREAD_ENV = dict(os.environ, OMP_NUM_THREADS='1')
 
 ARCH = ['--model', 'twostage_cycle', '--which_direction', 'AtoB',
         '--dataset_mode', 'single', '--fineSize', '64',
@@ -62,7 +65,7 @@ def test_cli_writes_results_layout(ckpt_dir, tmp_path):
     cmd = [sys.executable, '-m', 'supervised_gan_tpu_torch.test',
            '--gpu_ids', '-1', '--how_many', '3'] + _args(ckpt_dir, results)
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=300, env=ONE_THREAD_ENV)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.count('Random check: ') == 3
     web = os.path.join(results, 'dsgan_small', 'test_latest')

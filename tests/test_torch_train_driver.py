@@ -22,8 +22,11 @@ from supervised_gan_tpu_torch import train as ttrain
 from supervised_gan_tpu_torch.ops import kernels as K
 
 from test_torch_train_step import FLAGS
+from test_torch_layout import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the subprocess's torch on one thread, as one_thread sets it in-process
+ONE_THREAD_ENV = dict(os.environ, OMP_NUM_THREADS='1')
 NETS = ['G1', 'G2', 'F2', 'D1_0', 'D1_1', 'D2_0', 'D2_1']
 
 
@@ -57,7 +60,7 @@ def test_train_cli_two_steps(dataroot, tmp_path):
     cmd = [sys.executable, '-m', 'supervised_gan_tpu_torch.train',
            '--gpu_ids', '-1'] + args
     out = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
+                         timeout=600, env=ONE_THREAD_ENV)
     assert out.returncode == 0, out.stderr[-3000:]
     lines = [l for l in out.stdout.splitlines() if l.startswith('(epoch: 1')]
     assert len(lines) == 2

@@ -43,6 +43,7 @@ from supervised_gan_tpu_torch.options import TrainOptions as TTrainOptions
 from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_layout import jax_params, nchw
+from test_torch_layout import one_thread  # noqa: F401
 
 FLAGS = ['--dataroot', './datasets/unused', '--name', 'step',
          '--model', 'twostage_cycle', '--which_direction', 'AtoB',

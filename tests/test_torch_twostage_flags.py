@@ -44,7 +44,7 @@ from supervised_gan_tpu_torch.models.pools import decide
 from supervised_gan_tpu_torch.options import TrainOptions as TTrainOptions
 from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
-from test_torch_layout import jax_params, nchw
+from test_torch_layout import jax_params, nchw, one_thread  # noqa: F401
 from test_torch_train_step import FLAGS, LR
 
 PAIRS = ['--GAN_losses_D2', 'real_fake', 'fake_fake',
@@ -53,18 +53,6 @@ CASES = {'multi_class_fixed_noise_detach_y': [
     '--use_multi_class_GAN', '--GAN_losses_G2', 'real_fake', 'fake_fake',
     '--detach_G1_from_G2_y', '--use_fixed_noise1', '--noise_pool_size', '3'],
     'fake_fake_no_cgan': PAIRS + ['--no_cgan']}
-
-
-@pytest.fixture(autouse=True, scope='module')
-def one_thread():
-    """The port's CPU ops on one thread while this module runs: the suite
-    runs six workers on fewer cores, where torch's default thread pool per
-    worker made these steps several times slower, and its neighbours
-    too."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _batch(seed=0):

@@ -15,6 +15,7 @@ from supervised_gan_tpu_torch.utils import pth as tpth
 from supervised_gan_tpu_torch.utils.weights import from_jax_params
 
 from test_torch_layout import jax_params, nchw, nhwc, rand
+from test_torch_layout import one_thread  # noqa: F401
 
 # small widths of the DSGAN sampler's two generators (G1 fcgan, G2 CRN with
 # bilinear upsampling, 2-conv blocks and InstanceNorm)
