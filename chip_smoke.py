@@ -6,8 +6,10 @@ chunked, its conditional sampler), the segmentation gate (train_ss,
 test_ss), the rest of the two-stage family (--model twostage and
 twostage_factd, the DSGAN's training options), latent inversion (recon),
 the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal),
-segmentation_cycle, --model test (resnet_9blocks) and the bench entry
-points on one CUDA card, on the hand-written kernels and under
+segmentation_cycle, --model test (resnet_9blocks), the rest of the
+network zoo (fcgan_star, the autoencoder, n_layers_sep, the dcgan G and D)
+on the recipes that select them, and the bench entry points on one CUDA
+card, on the hand-written kernels and under
 --no_pallas, and hold every hand-written kernel against its plain PyTorch
 version.
 
@@ -231,7 +233,21 @@ comparison is float32 against float32.
      (f32, kernels) and one f32 iteration card vs CPU; TestModel's resnet
      forward card vs CPU in f32 (2e-3), then its images/s in f32 and bf16
      with exact launches;
- 18. a JSON line of per-kernel results (launches: the DSGAN train step's),
+ 18. the rest of the zoo, each net on the README command that selects
+     it, changed in its nets alone (ZOO): Z1 stage 1 with fcgan_star, Z2
+     SGAN step 2 with the autoencoder G and n_layers_sep, Z3 JointGAN with
+     the dcgan G and D at their fixed 128 px: the kernel sites of one f32
+     step of each, their totals against the launches written from the
+     nets' structure (ZOO per_step), the sites no earlier phase has held
+     against their plain versions as in 3 and 6; each path LAST_STEPS
+     bf16 steps through the train entry point (exact launches, finite
+     losses, its checkpoints loaded back strictly by --continue_train),
+     its sampler on the trained run (exact launches a sample), the bench
+     entry point on its command (bf16, kernels; per step and chunked, a
+     CUDA graph of the step; held as the bench phase's arms) and one f32
+     iteration card vs CPU as in 10 (losses 1e-3, gradients within
+     max(5e-2, 2 x floor) in L2; Z2 at ngf / ndf 16);
+ 19. a JSON line of per-kernel results (launches: the DSGAN train step's),
      the card line, and the last line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
@@ -3138,10 +3154,10 @@ def cgan_chunked_train():
 
 
 def phase_cgan_sampler(trained, samples=4, flags=CGAN_SAMPLER,
-                       label='cgan'):
+                       label='cgan', per_sample=CGAN_PER_SAMPLE):
     """The conditional sampler entry point on a trained run of a cgan
     recipe (``flags``: its architecture; the generator from the label,
-    CGAN_PER_SAMPLE's launches a sample) over the segmentation set's test
+    ``per_sample`` launches a sample) over the segmentation set's test
     images (bf16): launch counts, finite outputs, real_A and fake_B
     written per input, images/s."""
     d = os.path.join(RESULTS_DIR, label + '_sampler')
@@ -3150,9 +3166,9 @@ def phase_cgan_sampler(trained, samples=4, flags=CGAN_SAMPLER,
         '--name', trained, '--how_many', str(samples), '--results_dir', d])
     torch.cuda.synchronize()
     counts = K.launch_counts()
-    check(counts == expected(CGAN_PER_SAMPLE, samples),
+    check(counts == expected(per_sample, samples),
           '%s sampler: launches %s, expected %s' % (
-              label, counts, expected(CGAN_PER_SAMPLE, samples)))
+              label, counts, expected(per_sample, samples)))
     check(r['samples'] == samples and r['nonfinite'] == 0,
           '%s sampler: %d samples, %d non-finite' % (
               label, r['samples'], r['nonfinite']))
@@ -3986,6 +4002,216 @@ def phase_resnet_test():
     return out
 
 
+# --------------------------------------------------------------- the zoo -- #
+
+ZOO_NAME = 'chip_smoke_zoo'
+# Each path is a README command with the nets changed and nothing else:
+# Z1 the stage-1 label GAN (tools/recipe_r05.py:71-84, README.md:274-280;
+# STAGE1_ARCH + STAGE1_TRAIN) with the factorized G; Z2 SGAN step 2
+# (CGAN_FLAGS, README.md:345-352) with the autoencoder G (5 levels) and the
+# separable D; Z3 JointGAN (bench_extra.JOINTGAN_ARGS, tools/
+# bench_extra.py:71-77) with the DCGAN pair at its fixed 128 px from 100 x
+# 1^2 noise, one D.  ``arch``: the sampler's flags (the architecture ones).
+Zoo = collections.namedtuple('Zoo', 'flags arch px per_step per_sample nets '
+                                    'visuals')
+_ZOO_TRAIN_ONLY = ('--which_model_netD', '--n_layers_D', '--ndf',
+                   '--scale_factor', '--lambda_D', '--n_update_G',
+                   '--no_lsgan', '--lr')
+Z1_ARCH = _with(STAGE1_ARCH, which_model_netG='fcgan_star',
+                name=ZOO_NAME + '_z1') + ['--compute_dtype', 'bfloat16']
+Z2_FLAGS = _with(CGAN_FLAGS, which_model_netG='autoencoder',
+                 which_model_netD='n_layers_sep',
+                 name=ZOO_NAME + '_z2') + ['--n_layers_G', '5']
+Z3_FLAGS = _with(_without(bench_extra.JOINTGAN_ARGS, '--n_layers_D',
+                          '--scale_factor', '--lambda_D'),
+                 dataroot=DATA_DIR, checkpoints_dir=CKPT_DIR,
+                 name=ZOO_NAME + '_z3', which_model_netG='dcgan',
+                 which_model_netD='dcgan', loadSize='128', fineSize='128',
+                 noiseSize='1', noise_nc='100', ngf='64', ndf='64') + [
+    '--n_layers_D', '3', '--scale_factor', '1', '--lambda_D', '1']
+
+# Kernel launches a step, from the nets' structure.  Z1: stage 1's D bank
+# and update schedule (S1_*: G runs 3 times, the D bank 4), G two towers of
+# 6 k4 s2 ConvTs whose 2 stems see the noise (no dx).  Z2: cgan's schedule
+# (CG_*); the autoencoder 6 k4 s2 convs (5 levels and the latent; the stem
+# sees the label), 6 k4 s2 ConvTs and 10 IN; the separable D of n_layers 3
+# 5 k4 s2 convs (the two towers' 2 each, 1 in the trunk) and 4 IN, of
+# n_layers 4 6 and 5, 4 stems in all (the towers' first: on the detached
+# pairs of the D update they need no dx; in the G update the label tower's
+# does, as its input is a slice of a pair that needs a gradient).  Z3: the
+# same schedule as Z1, the dcgan G 5 k4 s2 ConvTs after its 4-1-0 one (a
+# library call), the dcgan D 5 k4 s2 convs (1 stem) and no IN (BatchNorm).
+Z1_G_CONVT, Z1_G_STEMS = 12, 2
+AE_DOWN, AE_UP, AE_IN = 6, 6, 10
+SEP_CONV, SEP_STEMS, SEP_IN = 5 + 6, 4, 4 + 5
+DC_G_CONVT, DC_D_CONV = 5, 5
+
+
+def fcgan_zoo_per_step(g_convt, g_stems, n_ds, d_conv, d_in):
+    """A --model fcgan step (n_update_D 1, n_update_G 2) with a G of
+    ``g_convt`` k4 s2 ConvTs (``g_stems`` of them on the noise) and ``n_ds``
+    Ds of ``d_conv`` k4 s2 convs (1 stem) and ``d_in`` IN each."""
+    return {'convt4s2': (S1_G_RUNS * g_convt + 2 * n_ds * (d_conv - 1)
+                         + S1_G_UPDATES * n_ds * d_conv),
+            'conv4s2': (S1_D_PASSES * n_ds * d_conv
+                        + S1_G_UPDATES * (g_convt - g_stems)),
+            'instance_norm_act': S1_D_PASSES * n_ds * d_in,
+            'instance_norm_bwd': S1_D_PASSES * n_ds * d_in}
+
+
+ZOO = collections.OrderedDict([
+    ('z1_fcgan_star', Zoo(
+        Z1_ARCH + STAGE1_TRAIN, Z1_ARCH, 512,
+        fcgan_zoo_per_step(Z1_G_CONVT, Z1_G_STEMS, S1_DS, S1_D_CONV,
+                           S1_D_IN),
+        {'convt4s2': Z1_G_CONVT}, ('G', 'D_0', 'D_1', 'D_2'), ('fake',))),
+    ('z2_autoencoder_sep', Zoo(
+        Z2_FLAGS, _with(CGAN_SAMPLER, which_model_netG='autoencoder')
+        + ['--n_layers_G', '5'], 512,
+        {'conv4s2': (CG_G_RUNS * AE_DOWN + (2 + CG_G_UPDATES) * SEP_CONV
+                     + CG_G_UPDATES * AE_UP),
+         'convt4s2': (CG_G_RUNS * AE_UP + 2 * (SEP_CONV - SEP_STEMS)
+                      + CG_G_UPDATES * SEP_CONV
+                      + CG_G_UPDATES * (AE_DOWN - 1)),
+         'instance_norm_act': CG_G_RUNS * AE_IN + (2 + CG_G_UPDATES) * SEP_IN,
+         'instance_norm_bwd': ((2 + CG_G_UPDATES) * SEP_IN
+                               + CG_G_UPDATES * AE_IN)},
+        {'conv4s2': AE_DOWN, 'convt4s2': AE_UP, 'instance_norm_act': AE_IN},
+        ('G', 'D_0', 'D_1'), None)),
+    ('z3_dcgan', Zoo(
+        Z3_FLAGS, _without(Z3_FLAGS, *_ZOO_TRAIN_ONLY), 128,
+        fcgan_zoo_per_step(DC_G_CONVT, 0, 1, DC_D_CONV, 0),
+        {'convt4s2': DC_G_CONVT}, ('G', 'D_0'),
+        ('fake_label', 'fake_image')))])
+
+
+def phase_zoo_sites(known):
+    """The kernel sites of one f32 step of each zoo path (full width),
+    recorded as record_step_sites does; their totals against ZOO's
+    per_step; the sites no earlier path has (``known``: their books),
+    printed, each with its plan checked.  Returns (those sites' books in
+    train_cases' keys, the per-path books)."""
+    paths, want_of = {}, {}
+    for path, z in ZOO.items():
+        m = create_model(TrainOptions().parse(z.flags + ON_CARD + [
+            '--compute_dtype', 'float32', '--name',
+            '%s_%s_sites' % (ZOO_NAME, path)]))
+        m.set_input(fixed_batch(px=z.px))
+        paths[path] = record_step_sites(m.optimize_parameters)
+        want_of[path] = z.per_step
+        del m
+        gc.collect()
+    torch.cuda.empty_cache()
+    return report_sites(paths, want_of, known), paths
+
+
+def _fcgan_draws(model):
+    """One noise for every --model fcgan model, drawn once on the CPU from
+    seed 11, on the model's device."""
+    noise = torch.randn(model._noise_shape(),
+                        generator=torch.Generator().manual_seed(11))
+    model.draw_noise = lambda: noise.to(model.device)
+
+
+def _fcgan_step_in_parts(model, d_from=None):
+    """A --model fcgan iteration's D update and first G update on one fake
+    (with ``d_from``, the D bank takes d_from's parameters between them).
+    Returns the loss terms."""
+    fake = model._generate(model.draw_noise())
+    d_real, d_fake = model.update_D(fake)
+    if d_from is not None:
+        with torch.no_grad():
+            for p, q in zip(model.netD.parameters(),
+                            d_from.netD.parameters()):
+                p.copy_(q)
+    g = model.update_G(fake)
+    return {'D_real': float(d_real), 'D_fake': float(d_fake),
+            'G_GAN': float(g)}
+
+
+def zoo_reference_step(path):
+    """One f32 iteration of a zoo path at its size, card (kernels) vs CPU
+    (plain versions), as family_reference_step holds the cgan family's:
+    losses 1e-3, gradients within max(5e-2, 2 x floor) in L2; no pool, no
+    dropout; Z2 at ngf / ndf 16 (its CPU steps), the others at full
+    width."""
+    z = ZOO[path]
+    if path.startswith('z2'):
+        recipe = Recipe(_with(z.flags, ngf='16', ndf='16'),
+                        '%s_%s' % (ZOO_NAME, path),
+                        ['--pool_size', '0', '--no_dropout'], lambda m: None,
+                        _d_g_step_in_parts)
+    else:
+        recipe = Recipe(z.flags, '%s_%s' % (ZOO_NAME, path),
+                        ['--pool_size', '0', '--no_dropout'], _fcgan_draws,
+                        _fcgan_step_in_parts)
+    return _reference_step((), '_ref', 'float32', loss_tol=1e-3,
+                           grad_tol=5e-2, floor_factor=2, card_flags=[],
+                           recipe=recipe, batch=fixed_batch(px=z.px, seed=5))
+
+
+def _check_reload(path, name):
+    """The run's latest checkpoints into a fresh model of its command with
+    --continue_train: every net loads strictly (and the full state), and
+    each equals its file."""
+    m = create_model(TrainOptions().parse(ZOO[path].flags + ON_CARD + [
+        '--name', name, '--continue_train', '--which_epoch', 'latest']))
+    nets = {'G': m.netG}
+    nets.update(('D_%d' % i, d) for i, d in enumerate(m.netD))
+    check(sorted(nets) == sorted(ZOO[path].nets),
+          '%s: nets %s' % (path, sorted(nets)))
+    for label, net in nets.items():
+        saved = torch.load(os.path.join(CKPT_DIR, name, 'latest_net_%s.pth'
+                                        % label), weights_only=True)
+        ours = net.state_dict()
+        check(set(ours) == set(saved) and all(
+            torch.equal(ours[k].cpu(), v) for k, v in saved.items()),
+            '%s: latest_net_%s.pth did not load back' % (path, label))
+    del m
+
+
+def phase_zoo():
+    """Each zoo path on its command (bf16): LAST_STEPS steps through the
+    train entry point (exact launches, finite losses, its checkpoints,
+    loaded back strictly), its sampler on the trained run (exact launches),
+    the bench's record (per step and chunked: a CUDA graph of the step;
+    held as the bench phase's arms), one f32 iteration card vs CPU."""
+    out = {}
+    for path, z in ZOO.items():
+        name = '%s_%s_bfloat16' % (ZOO_NAME, path)
+        r = dict(train=run_train(
+            z.flags + ON_CARD + _epoch_flags(name, 'bfloat16', LAST_STEPS)
+            + ['--display_freq', str(LAST_STEPS), '--save_epoch_freq', '1'],
+            name, LAST_STEPS, z.per_step, z.nets))
+        _check_reload(path, name)
+        if z.visuals is None:
+            r['sampler'] = phase_cgan_sampler(name, flags=z.arch,
+                                              label=path,
+                                              per_sample=z.per_sample)
+        else:
+            t0 = time.perf_counter()
+            rs, counts = run_sampler(
+                z.arch + ['--name', name], 4,
+                os.path.join(RESULTS_DIR, path + '_sampler'), z.per_sample,
+                z.visuals)
+            r['sampler'] = dict(samples=4, launches=counts,
+                                loop_seconds=rs['loop_seconds'],
+                                sample_seconds=rs['sample_seconds'],
+                                images_per_second=4 / rs['loop_seconds'])
+            print('  %s sampler: 4 samples in %.3f s (drawing %.3f s); '
+                  'launches %s (%.1f s with the set-up)' % (
+                      path, rs['loop_seconds'], rs['sample_seconds'], counts,
+                      time.perf_counter() - t0))
+        r['bench'] = _bench_arms(
+            ((path + ' kernels bf16', ['--compute_dtype', 'bfloat16']),),
+            lambda flags, z=z, path=path, **kw: bench.main(
+                flags, base=z.flags, metric_name=path, **kw), z.per_step)
+        print('  %s: one f32 iteration, card vs CPU' % path)
+        r['reference_step'] = zoo_reference_step(path)
+        out[path] = r
+    return out
+
+
 def main():
     t_start = time.time()
     torch.backends.cudnn.allow_tf32 = False
@@ -4288,6 +4514,22 @@ def main():
     last_seconds = time.time() - t_last
     print('last recipes\' phases: %.1f s' % last_seconds)
 
+    print('== the rest of the zoo (fcgan_star, the autoencoder and '
+          'n_layers_sep, the dcgan pair): their kernel sites, and those no '
+          'earlier path has')
+    t_zoo = time.time()
+    zoo_books, zoo_paths = phase_zoo_sites(
+        [books] + list(new_paths.values()) + list(ts_paths.values())
+        + list(last_paths.values()))
+    print('== kernels vs plain versions at the zoo\'s new sites')
+    per_site_zoo, agg_zoo = run_cases(new_site_cases(zoo_books))
+    print('== the zoo paths: Z1 stage 1 with fcgan_star, Z2 SGAN step 2 with '
+          'the autoencoder and n_layers_sep, Z3 JointGAN with the dcgan pair '
+          '(bf16)')
+    zoo = phase_zoo()
+    zoo_seconds = time.time() - t_zoo
+    print('zoo phases: %.1f s' % zoo_seconds)
+
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
                  'instance_norm_bwd', 'conv4s2', 'conv3x3_in_stats',
@@ -4376,6 +4618,18 @@ def main():
                                  for k, v in b.items()}
                           for path, b in last_paths.items()},
                       seconds=last_seconds),
+                  zoo=dict(
+                      paths=zoo,
+                      launches_per_step={p: z.per_step
+                                         for p, z in ZOO.items()},
+                      launches_per_sample={p: z.per_sample
+                                           for p, z in ZOO.items()},
+                      sites=per_site_zoo, site_sums=agg_zoo,
+                      site_books={
+                          path: {k: {repr(s_): c for s_, c in v.items()}
+                                 for k, v in b.items()}
+                          for path, b in zoo_paths.items()},
+                      seconds=zoo_seconds),
                   new_site_books={
                       path: {k: {repr(s_): c for s_, c in v.items()}
                              for k, v in b.items()}

@@ -6,14 +6,22 @@ cgan, segmentation; ``build_gan_train_step`` there) and the D update on
 
 import torch
 
-from ..nn.generators import CascadedRefinementNetwork
+from ..nn.generators import (CascadedRefinementNetwork, DCGANGenerator,
+                             FCGANGenerator, FCGANGeneratorStar)
 from ..nn.losses import gan_loss
 from ..ops import reflection_pad
 
+# the generators that take the noise alone (reference
+# models/networks.py:535 and 1067)
+NOISE_ONLY = (FCGANGenerator, FCGANGeneratorStar, DCGANGenerator)
+
 
 def g_apply(net, x, noise, dtype, activation='tanh'):
-    """A generator on the label x in ``dtype``: the CRN takes the noise, the
-    other generators ignore it (models/common.py g_apply there)."""
+    """A generator in ``dtype`` (models/common.py:43-60 there): the fcgan,
+    fcgan_star and dcgan generators take the noise alone, the CRN the label
+    x and the noise, the others x alone (they ignore the noise)."""
+    if isinstance(net, NOISE_ONLY):
+        return net(noise.to(dtype), activation=activation)
     if isinstance(net, CascadedRefinementNetwork):
         return net(x.to(dtype), noise.to(dtype), activation=activation)
     return net(x.to(dtype), activation=activation)

@@ -1,13 +1,10 @@
 """Network factory: the string registry of supervised_gan_tpu/nn/factory.py
-(`define_G` :22, `define_D` :66), for the networks ported so far."""
+(`define_G` :22, `define_D` :66), every name it builds, with the same
+arguments."""
 
 from .core import BatchNorm2d, InstanceNorm2d, count_params, init_weights
 from . import discriminators as D
 from . import generators as G
-
-_NOT_YET = ('autoencoder', 'fcgan_star', 'dcgan')
-_NOT_YET_D = ('n_layers_sep', 'dcgan')
-
 
 def get_norm_layer(norm_type='instance'):
     if norm_type == 'batch':
@@ -47,9 +44,15 @@ def define_G(input_nc, output_nc, ngf, which_model_netG, norm='batch',
     elif which_model_netG in ('fcgan', 'deconv'):
         net = G.FCGANGenerator(noise_nc, input_nc, ngf, n_layers=n_layers_G,
                                use_dropout=use_dropout, use_fcn=use_fcn)
-    elif which_model_netG in _NOT_YET:
-        raise NotImplementedError(
-            'Generator model name [%s] not yet ported' % which_model_netG)
+    elif which_model_netG == 'autoencoder':
+        net = G.AutoEncoder(input_nc, output_nc, n_layers_G, ngf, norm_layer,
+                            use_dropout)
+    elif which_model_netG == 'fcgan_star':
+        net = G.FCGANGeneratorStar(noise_nc, input_nc, ngf,
+                                   n_layers=n_layers_G,
+                                   use_dropout=use_dropout, use_fcn=use_fcn)
+    elif which_model_netG == 'dcgan':
+        net = G.DCGANGenerator(nz=noise_nc, nc=input_nc, ngf=ngf)
     else:
         raise NotImplementedError(
             'Generator model name [%s] is not recognized' % which_model_netG)
@@ -67,9 +70,11 @@ def define_D(input_nc, ndf, which_model_netD, n_layers_D=3, norm='batch',
         n_layers = 3 if which_model_netD == 'basic' else n_layers_D
         net = D.NLayerDiscriminator(input_nc, ndf, n_layers, norm_layer,
                                     use_sigmoid, scale_factor, num_classes)
-    elif which_model_netD in _NOT_YET_D:
-        raise NotImplementedError(
-            'Discriminator model name [%s] not yet ported' % which_model_netD)
+    elif which_model_netD == 'n_layers_sep':
+        net = D.NLayerDiscriminatorSep(input_nc, ndf, n_layers_D, norm_layer,
+                                       use_sigmoid, scale_factor, num_classes)
+    elif which_model_netD == 'dcgan':
+        net = D.DCGANDiscriminator(nc=input_nc, ndf=ndf)
     else:
         raise NotImplementedError(
             'Discriminator model name [%s] is not recognized'

@@ -1,10 +1,12 @@
 """The generators of the recipes (NCHW).
 
 Counterparts of supervised_gan_tpu/nn/generators.py: `FCGANGenerator`
-(:41-95), the unet (`UnetSkipConnectionBlock`, `UnetGenerator`, :150-264,
-pixel output only), the CRN (`CrnUpsampleBlock`, `CrnInterBlock`,
-`CascadedRefinementNetwork`, :265-386) and the resnet (`ResnetBlock`,
-`ResnetGenerator`, :389-444).  Structure, channel arithmetic,
+(:41-95), `FCGANGeneratorStar` (:97-147), the unet
+(`UnetSkipConnectionBlock`, `UnetGenerator`, :150-264, pixel output only),
+the CRN (`CrnUpsampleBlock`, `CrnInterBlock`, `CascadedRefinementNetwork`,
+:265-386), the resnet (`ResnetBlock`, `ResnetGenerator`, :389-444),
+`AutoEncoder` (:447-482) and `DCGANGenerator` (:484-508).  Structure,
+channel arithmetic,
 layer order and attribute names match, so parameter counts and state_dict
 keys line up.  Injected Gaussian noise (--add_gaussian_noise) is a
 GaussianNoise module beside a block's ``model``, with no parameters, so the
@@ -62,6 +64,55 @@ class FCGANGenerator(nn.Module):
 
     def forward(self, noise, activation='tanh'):
         return activate(self.model(noise), activation)
+
+
+def _up(in_nc, out_nc, final=False):
+    """One level of a FCGANGeneratorStar tower: a k4 s2 ConvT without bias,
+    then BatchNorm and ReLU unless it is the head."""
+    layers = [ConvTranspose2d(in_nc, out_nc, 4, 2, 1, bias=False)]
+    if not final:
+        layers += [BatchNorm2d(out_nc), ReLU()]
+    return Sequential(*layers)
+
+
+class FCGANGeneratorStar(nn.Module):
+    """Two coupled ConvTranspose towers from two halves of the noise: tower
+    a (``conv0a``-``conv5a``) makes the label channel, tower b
+    (``conv0b``-``conv5b``) the image channel, and each level 1-5 of tower b
+    takes cat(ha, hb).  The first half of the noise channels feeds tower b,
+    the second tower a; the output is cat(ha, hb), label first.  BatchNorm
+    always; use_dropout is not read.  Needs n_layers == 5, use_fcn and
+    input_nc == 2 (reference models/networks.py:549-551)."""
+
+    def __init__(self, noise_nc, input_nc, ngf=64, n_layers=3,
+                 use_dropout=False, use_fcn=False):
+        super().__init__()
+        if not (n_layers == 5 and use_fcn and input_nc == 2):
+            raise ValueError('fcgan_star needs n_layers 5, noiseSize > 1 and '
+                             'input_nc 2, got %d, %s, %d'
+                             % (n_layers, use_fcn, input_nc))
+        self.noise_nc = noise_nc // 2
+        mults = [8, 8, 4, 2, 1]
+        ic = self.noise_nc
+        for i, m in enumerate(mults):
+            setattr(self, 'conv%da' % i, _up(ic, ngf * m))
+            ic = ngf * m
+        self.conv5a = _up(ngf, 1, final=True)
+        self.conv0b = _up(self.noise_nc, ngf * 8)
+        for i, m in enumerate(mults[1:]):
+            # level i + 1 takes cat(ha, hb), each ngf * mults[i] channels
+            setattr(self, 'conv%db' % (i + 1), _up(2 * ngf * mults[i],
+                                                   ngf * m))
+        self.conv5b = _up(2 * ngf, 1, final=True)
+
+    def forward(self, noise, activation='tanh'):
+        n = self.noise_nc
+        hb = self.conv0b(noise[:, :n])
+        ha = self.conv0a(noise[:, n:2 * n])
+        for i in range(1, 6):
+            hb = getattr(self, 'conv%db' % i)(torch.cat([ha, hb], 1))
+            ha = getattr(self, 'conv%da' % i)(ha)
+        return activate(torch.cat([ha, hb], 1), activation)
 
 
 class UnetSkipConnectionBlock(nn.Module):
@@ -305,3 +356,66 @@ class ResnetGenerator(nn.Module):
     def forward(self, x, activation='tanh'):
         y = self.model(x)
         return torch.tanh(x + y if self.use_residual else y)
+
+
+class AutoEncoder(nn.Module):
+    """A k4 s2 conv encoder down to min(2^n_layers, 8) latent channels, then
+    a k4 s2 ConvT decoder back up (reference models/networks.py:422-490).
+    The latent conv, the first ConvT and the head have no bias; with
+    use_dropout each encoder level past the first runs norm, Dropout(0.2),
+    ReLU and each decoder level past the first norm, Dropout(0.5), ReLU.
+    It takes no noise."""
+
+    def __init__(self, input_nc, output_nc, n_layers=3, ngf=64,
+                 norm_layer=BatchNorm2d, use_dropout=False):
+        super().__init__()
+        layers = [Conv2d(input_nc, ngf, 4, 2, 1), norm_layer(ngf), ReLU()]
+        nf_mult = 1
+        for n in range(1, n_layers):
+            prev, nf_mult = nf_mult, min(2 ** n, 8)
+            layers += [Conv2d(prev * ngf, ngf * nf_mult, 4, 2, 1),
+                       norm_layer(ngf * nf_mult)]
+            if use_dropout:
+                layers.append(Dropout(0.2))
+            layers.append(ReLU())
+        latent_nc = min(2 ** n_layers, 8)
+        layers.append(Conv2d(nf_mult * ngf, latent_nc, 4, 2, 1, bias=False))
+        nf_mult = min(2 ** (n_layers - 1), 8)
+        layers += [ConvTranspose2d(latent_nc, ngf * nf_mult, 4, 2, 1,
+                                   bias=False),
+                   norm_layer(ngf * nf_mult), ReLU()]
+        for n in range(1, n_layers):
+            prev, nf_mult = nf_mult, min(2 ** (n_layers - n - 1), 8)
+            layers += [ConvTranspose2d(ngf * prev, ngf * nf_mult, 4, 2, 1),
+                       norm_layer(ngf * nf_mult)]
+            if use_dropout:
+                layers.append(Dropout(0.5))
+            layers.append(ReLU())
+        layers.append(ConvTranspose2d(ngf, output_nc, 4, 2, 1, bias=False))
+        self.model = Sequential(*layers)
+
+    def forward(self, x, activation='tanh'):
+        return activate(self.model(x), activation)
+
+
+class DCGANGenerator(nn.Module):
+    """The fixed 128 px DCGAN stack from a 1x1 noise (reference
+    models/networks.py:1015-1071): a k4 s1 p0 ConvT to 4x4, five k4 s2
+    ConvTs (ngf 8 -> 4 -> 2 -> 1 -> 1/2 -> nc), none with bias, BatchNorm
+    and ReLU between, and the Tanh inside the model: the forward's
+    ``activation`` is not read, as in the reference."""
+
+    def __init__(self, nz=100, nc=3, ngf=64):
+        super().__init__()
+        layers = [ConvTranspose2d(nz, ngf * 8, 4, 1, 0, bias=False)]
+        widths = [ngf * 8, ngf * 4, ngf * 2, ngf, ngf // 2]
+        for a, b in zip(widths, widths[1:]):
+            layers += [BatchNorm2d(a), ReLU(),
+                       ConvTranspose2d(a, b, 4, 2, 1, bias=False)]
+        layers += [BatchNorm2d(widths[-1]), ReLU(),
+                   ConvTranspose2d(widths[-1], nc, 4, 2, 1, bias=False),
+                   Tanh()]
+        self.model = Sequential(*layers)
+
+    def forward(self, noise, activation='tanh'):
+        return self.model(noise)
