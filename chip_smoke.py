@@ -8,7 +8,8 @@ twostage_factd, the DSGAN's training options), latent inversion (recon),
 the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal),
 segmentation_cycle, --model test (resnet_9blocks), the rest of the
 network zoo (fcgan_star, the autoencoder, n_layers_sep, the dcgan G and D)
-on the recipes that select them, and the bench entry points on one CUDA
+on the recipes that select them, the native PNG decoder and the loader,
+the quality gate (quality_eval), and the bench entry points on one CUDA
 card, on the hand-written kernels and under
 --no_pallas, and hold every hand-written kernel against its plain PyTorch
 version.
@@ -247,7 +248,28 @@ comparison is float32 against float32.
      CUDA graph of the step; held as the bench phase's arms) and one f32
      iteration card vs CPU as in 10 (losses 1e-3, gradients within
      max(5e-2, 2 x floor) in L2; Z2 at ngf / ndf 16);
- 19. a JSON line of per-kernel results (launches: the DSGAN train step's),
+ 19. the host image path: the native PNG decoder (supervised_gan_tpu_torch/
+     csrc/dataio.cpp, built with g++ into supervised_gan_tpu_torch/build/
+     beside the kernels; a failed build fails the run) against PIL on the
+     1024^2 training set and the gate's 512^2 set, pixel for pixel, and
+     load_rgb's host ms an image each way, in turns; the cgan command's
+     input path stage by stage (load_rgb, dataset.get, the loader's
+     collate, the model's set_input to a synchronize) and the loader alone,
+     each way; the train entry point on the cgan command per step and
+     chunked (--steps_per_dispatch), with the decoder and with
+     --no_native_io (exact launches);
+ 20. the quality gate (supervised_gan_tpu_torch/quality_eval.py) at its
+     full width, 512 px, ngf 16, and a smoke's depth (GATE_ARGS): the
+     kernel sites of one f32 step of its GAN (conv3x3 included) and of
+     one segmentation step and val forward, their totals against the
+     launches written from the nets' structure (GATE_PER_STEP, SEG_PER_STEP,
+     SEG_PER_FORWARD), the sites no earlier phase has held against their
+     plain versions as in 3 and 6; then the gate itself, every driver in
+     turn in-process with its exact launches (gate_launches), its sampled
+     *AB* pairs decoded natively, RandScore and meanIU within [0, 1] and
+     every metric finite for the GAN pairs, the real-pairs bound and the
+     label-shuffled control;
+ 21. a JSON line of per-kernel results (launches: the DSGAN train step's),
      the card line, and the last line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
@@ -288,10 +310,15 @@ from supervised_gan_tpu_torch import bench  # noqa: E402
 from supervised_gan_tpu_torch import bench_extra  # noqa: E402
 from supervised_gan_tpu_torch import recon  # noqa: E402
 from supervised_gan_tpu_torch import nn as tnn  # noqa: E402
+from supervised_gan_tpu_torch import quality_eval  # noqa: E402
 from supervised_gan_tpu_torch import test as sampler  # noqa: E402
 from supervised_gan_tpu_torch import test_ss  # noqa: E402
 from supervised_gan_tpu_torch import train as trainer  # noqa: E402
 from supervised_gan_tpu_torch import train_ss  # noqa: E402
+from supervised_gan_tpu_torch.data import CreateDataLoader  # noqa: E402
+from supervised_gan_tpu_torch.data import loader as data_loader  # noqa: E402
+from supervised_gan_tpu_torch.data import native_io  # noqa: E402
+from supervised_gan_tpu_torch.data import transforms  # noqa: E402
 from supervised_gan_tpu_torch.models import create_model  # noqa: E402
 from supervised_gan_tpu_torch.models.base import CAPTURE_AFTER  # noqa: E402
 from supervised_gan_tpu_torch.models.fcgan import FCGANModel  # noqa: E402
@@ -478,28 +505,31 @@ D1_CONV, D1_STEMS, D2_CONV, D2_STEMS = 6, 2, 14, 4
 G1_CONVT = 6
 
 
-def two_stage_per_step(f2=True, d2_fakes=1, g2_pairs=1):
+def two_stage_per_step(f2=True, d2_fakes=1, g2_pairs=1,
+                       d1=(D1_CONV, D1_STEMS), d2=(D2_CONV, D2_STEMS)):
     """Launches a step of a two-stage recipe at n_update 1: with F2 (the
     cycle) or without (twostage), D2 updated on ``d2_fakes`` fake pairs and
     the real one and judging ``g2_pairs`` pairs in the G update.  G2 on the
     fake label has a backward with F2, whose cycle term consumes it; without
-    F2 (and without a fake_fake G2 pair) it feeds no loss."""
+    F2 (and without a fake_fake G2 pair) it feeds no loss.  ``d1``, ``d2``:
+    each D bank's (k4 s2 convs, stems), one IN a conv."""
     d2_passes = d2_fakes + 1 + g2_pairs
     f2 = int(f2)
+    (d1_conv, d1_stems), (d2_conv, d2_stems) = d1, d2
     return {
         'conv3x3': (2 * G2_CONV3 + (G2_CONV3 - G2_LABEL_SIDE)
                     + f2 * G2_CONV3),
         'conv3x3_dw': (1 + f2) * G2_CONV3,
-        'instance_norm_act': (2 * G2_IN + 3 * F2_IN * f2 + 3 * D1_CONV
-                              + d2_passes * D2_CONV),
+        'instance_norm_act': (2 * G2_IN + 3 * F2_IN * f2 + 3 * d1_conv
+                              + d2_passes * d2_conv),
         'instance_norm_bwd': ((1 + f2) * G2_IN + 3 * F2_IN * f2
-                              + 3 * D1_CONV + d2_passes * D2_CONV),
-        'conv4s2': (3 * F2_DOWN * f2 + 3 * D1_CONV + d2_passes * D2_CONV
+                              + 3 * d1_conv + d2_passes * d2_conv),
+        'conv4s2': (3 * F2_DOWN * f2 + 3 * d1_conv + d2_passes * d2_conv
                     + 3 * F2_UP * f2 + (G1_CONVT - 1)),
         'convt4s2': (G1_CONVT + 3 * F2_UP * f2
-                     + 2 * (D1_CONV - D1_STEMS)
-                     + (d2_fakes + 1) * (D2_CONV - D2_STEMS)
-                     + D1_CONV + g2_pairs * D2_CONV
+                     + 2 * (d1_conv - d1_stems)
+                     + (d2_fakes + 1) * (d2_conv - d2_stems)
+                     + d1_conv + g2_pairs * d2_conv
                      + f2 * ((F2_DOWN - 1) + 2 * F2_DOWN)),
     }
 
@@ -2924,7 +2954,7 @@ SEG_PER_STEP = {'conv4s2': F2_DOWN + F2_UP, 'convt4s2': F2_UP + F2_DOWN - 1,
 SEG_PER_FORWARD = {'conv4s2': F2_DOWN, 'convt4s2': F2_UP,
                    'instance_norm_act': F2_IN}
 NEW_KINDS = ('conv4s2', 'ConvT4s2', 'conv4s2_dx', 'InstanceNormAct',
-             'instance_norm_bwd')
+             'instance_norm_bwd', 'Conv3x3', 'conv3x3_dx', 'conv3x3_dw')
 
 
 def _plus(*counts):
@@ -2960,8 +2990,9 @@ def record_step_sites(run):
     """``run()`` with the kernel wrappers and Functions wrapped to count
     their calls by signature: conv4s2 (forward and as convt4s2's dx), the
     ConvT4s2 forwards, convt4s2's launches as conv4s2's dx (those outside a
-    ConvT4s2 forward), InstanceNormAct and instance_norm_bwd; as
-    record_train_sites keys them."""
+    ConvT4s2 forward), InstanceNormAct, instance_norm_bwd, the Conv3x3
+    forwards, conv3x3's dx and conv3x3_dw; as record_train_sites keys
+    them."""
     books = {k: collections.Counter() for k in NEW_KINDS}
     saved, in_convt = [], []
 
@@ -3000,6 +3031,19 @@ def record_step_sites(run):
 
     patch(ops_conv, 'ConvT4s2', ConvT)
     patch(ops_norm, 'InstanceNormAct', INAct)
+    patch(functions, 'conv3x3_dw', _recorder(
+        K.conv3x3_dw, lambda x, g: (_shape(x), g.shape[1]),
+        books['conv3x3_dw']))
+    patch(functions, '_conv3x3_dx', _recorder(
+        functions._conv3x3_dx, lambda g, w: (_shape(g), _shape(w)),
+        books['conv3x3_dx']))
+
+    class Conv3:
+        @staticmethod
+        def apply(x, w, b):
+            books['Conv3x3'][(_shape(x), _shape(w), b is not None)] += 1
+            return K.Conv3x3.apply(x, w, b)
+    patch(ops_conv, 'Conv3x3', Conv3)
     try:
         run()
         torch.cuda.synchronize()
@@ -3020,7 +3064,10 @@ def _sites_got(b):
             'convt4s2': sum(b['ConvT4s2'].values())
             + sum(b['conv4s2_dx'].values()),
             'instance_norm_act': sum(b['InstanceNormAct'].values()),
-            'instance_norm_bwd': sum(b['instance_norm_bwd'].values())}
+            'instance_norm_bwd': sum(b['instance_norm_bwd'].values()),
+            'conv3x3': sum(b['Conv3x3'].values())
+            + sum(b['conv3x3_dx'].values()),
+            'conv3x3_dw': sum(b['conv3x3_dw'].values())}
 
 
 def report_sites(paths, want_of, known):
@@ -3043,6 +3090,16 @@ def report_sites(paths, want_of, known):
             for key, c in b[kind].items():
                 if not any(key in k[kind] for k in known):
                     new[kind][key] += c
+    for (xs, ws, has_b), c in sorted(new['Conv3x3'].items()):
+        print('  new site conv3x3      %d->%d @%dx%d%s x%d' % (
+            xs[1], ws[0], xs[2], xs[3], ' +b' if has_b else '', c))
+    for (gs, ws), c in sorted(new['conv3x3_dx'].items()):
+        print('  new site conv3x3 dx   %d->%d @%dx%d x%d' % (
+            gs[1], ws[1], gs[2], gs[3], c))
+    for (xs, co), c in sorted(new['conv3x3_dw'].items()):
+        check_dw_plan(xs[0], xs[1], co, xs[2], xs[3])
+        print('  new site conv3x3_dw   %d->%d @%dx%d x%d' % (
+            xs[1], co, xs[2], xs[3], c))
     for (xs, ws, has_b), c in sorted(new['conv4s2'].items()):
         check_conv4s2_plan(xs[0], xs[1], ws[0], xs[2], xs[3])
         print('  new site conv4s2      %d->%d @%dx%d%s x%d' % (
@@ -3064,7 +3121,8 @@ def report_sites(paths, want_of, known):
                          for xs, _ in new[kind]}):
         print('  IN plan %-20s %s' % (shape, _plan_text(
             check_in_plan(*shape))))
-    return {'conv3x3_dw': {}, 'conv3x3_dx': {}, 'conv4s2': new['conv4s2'],
+    return {'conv3x3_dw': new['conv3x3_dw'], 'conv3x3_dx': new['conv3x3_dx'],
+            'Conv3x3': new['Conv3x3'], 'conv4s2': new['conv4s2'],
             'convt4s2_f2': new['ConvT4s2'], 'conv4s2_dx': new['conv4s2_dx'],
             'InstanceNormAct': new['InstanceNormAct'],
             'instance_norm_bwd': new['instance_norm_bwd']}
@@ -3102,9 +3160,26 @@ def phase_new_sites(dsgan_books):
 
 def new_site_cases(books):
     """train_cases at the new sites, the generators' transposed-conv
-    forwards named convt4s2_fwd."""
-    return [c._replace(kernel='convt4s2_fwd') if c.kernel == 'convt4s2_f2'
-            else c for c in train_cases(books)]
+    forwards named convt4s2_fwd, and conv3x3's forwards as sampler_cases
+    holds them."""
+    cases = [c._replace(kernel='convt4s2_fwd') if c.kernel == 'convt4s2_f2'
+             else c for c in train_cases(books)]
+    for (xs, ws, has_b), count in sorted(books['Conv3x3'].items()):
+        n, ci, h, w = xs
+        co = ws[0]
+
+        def mk(gen, xs=xs, ws=ws, has_b=has_b):
+            return (randn(xs, gen), randn(ws, gen, (9 * ws[1]) ** -0.5),
+                    randn((ws[0],), gen, 0.1) if has_b else None)
+        elems = n * (ci + co) * h * w + co * ci * 9
+        cases.append(Case(
+            'conv3x3', '%d->%d @%dx%d%s' % (ci, co, h, w,
+                                            ' +b' if has_b else ''),
+            count, K.conv3x3, K.conv3x3_plain,
+            lambda x, w_, b: F.conv2d(x, w_, b, 1, 1),
+            2.0 * co * ci * 9 * n * h * w, 4.0 * elems + 4.0 * co * has_b,
+            2.0 * elems + 4.0 * co * has_b, mk, within))
+    return cases
 
 
 def cgan_train(dtype, steps):
@@ -3119,18 +3194,18 @@ def cgan_train(dtype, steps):
 CGAN_CHUNK, CGAN_CHUNK_EPOCHS = 10, 2
 
 
-def cgan_chunked_train():
+def cgan_chunked_train(extra=(), name=CGAN_NAME + '_chunked'):
     """The train entry point with --steps_per_dispatch 10, bf16, two epochs
     of the 8 synthetic images, no print or save inside: one chunk an epoch
     (flushed at its last batch), the first two steps eager, then the
     capture and replays.  The wrappers see the eager steps and the capture,
     no replay: 3 steps' launches.  The second chunk is all replays: its wall
-    time a step."""
-    name = CGAN_NAME + '_chunked'
+    time a step (from its first batch's arrival, so it waits on the loader
+    for the rest).  ``extra``: flags after the command's."""
     buf = io.StringIO()
     K.reset_launch_counts()
     with contextlib.redirect_stdout(buf):
-        r = trainer.main(CGAN_FLAGS + ON_CARD + [
+        r = trainer.main(CGAN_FLAGS + ON_CARD + list(extra) + [
             '--compute_dtype', 'bfloat16', '--name', name,
             '--niter', str(CGAN_CHUNK_EPOCHS), '--niter_decay', '0',
             '--max_dataset_size', str(TRAIN_IMAGES), '--print_freq', '100',
@@ -4212,6 +4287,253 @@ def phase_zoo():
     return out
 
 
+# ------------------------- the host image path and the quality gate -- #
+
+GATE_NAME = 'chip_smoke_gate'
+GATE_WORK = os.path.join(RESULTS_DIR, 'gate')
+# the gate's real set as supervised_gan_tpu_torch/quality_eval.py makes it
+# for the smoke's run below (512 px, train / val / test 4 / 2 / 4)
+GATE_PX, GATE_NGF, GATE_COUNTS = 512, 16, (4, 2, 4)
+GATE_SET = os.path.join(RESULTS_DIR, 'gate_set')
+GATE_SAMPLES = 4
+# the gate at its full width (quality_eval.build_args(512, 16): fcgan G1
+# ngf 16 x 5 layers, CRN G2 ngf 16, unet_128 F2 nff 16, one n_layers 3 D a
+# bank at scale 1, f32) and a smoke's depth: 1 + 1 epochs of each training
+GATE_ARGS = ['--px', str(GATE_PX), '--ngf', str(GATE_NGF),
+             '--train_n', str(GATE_COUNTS[0]), '--val_n', str(GATE_COUNTS[1]),
+             '--test_n', str(GATE_COUNTS[2]), '--epochs_gan', '1',
+             '--epochs_ss', '1', '--samples', str(GATE_SAMPLES),
+             '--negative_control', '--gpu_ids', '0', '--work', GATE_WORK]
+# its GAN step: the DSGAN's nets with each D bank one n_layers-3 D (3 k4 s2
+# convs, 1 stem, 3 IN); its sampler runs G1 and G2 as the README's does
+GATE_PER_STEP = two_stage_per_step(d1=(3, 1), d2=(3, 1))
+GATE_PER_SAMPLE = SAMPLER_PER_SAMPLE
+DRIVER_MAINS = {'train': trainer.main, 'test': sampler.main,
+                'train_ss': train_ss.main, 'test_ss': test_ss.main}
+DECODE_ROUNDS = 3
+SPLIT_NAME = CGAN_NAME + '_split'
+
+
+def _host_ms(fn, items, rounds=DECODE_ROUNDS):
+    """The median host ms of fn(item) over ``rounds`` passes of items."""
+    ts = []
+    for _ in range(rounds):
+        for it in items:
+            t0 = time.perf_counter()
+            fn(it)
+            ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts)
+
+
+@contextlib.contextmanager
+def native_decode(on):
+    """The decoder's process-wide switch (--no_native_io clears it) set to
+    ``on`` inside, put back after."""
+    saved = transforms._NATIVE_IO
+    transforms._NATIVE_IO = on
+    try:
+        yield
+    finally:
+        transforms._NATIVE_IO = saved
+
+
+def _pngs(root):
+    return sorted(os.path.join(d, f) for d, _, fs in os.walk(root)
+                  for f in fs if f.endswith('.png'))
+
+
+def phase_decode():
+    """The native PNG decoder on the card's host: its pixels against PIL's
+    on the 1024^2 training set and the gate's 512^2 set, load_rgb's ms an
+    image each way; the cgan train command's input path split by stage
+    (load_rgb, dataset.get, the loader's collate, the model's set_input to
+    a synchronize), the loader alone, and the train entry point per step
+    and chunked, with the decoder and with --no_native_io."""
+    quality_eval.make_dataset(GATE_SET, px=GATE_PX, counts=GATE_COUNTS)
+    out = dict(library=str(native_io.build()))
+    sets = (('1024^2 training set', _pngs(os.path.join(DATA_DIR, 'train'))),
+            ('512^2 gate set', _pngs(GATE_SET)))
+    for label, paths in sets:
+        for p in paths:
+            ours = native_io.decode_png(p)
+            check(ours is not None and np.array_equal(
+                ours, np.asarray(Image.open(p).convert('RGB'))),
+                'native decode of %s differs from PIL' % p)
+        row = {}
+        for on in (True, False, False, True):
+            with native_decode(on):
+                row.setdefault('native' if on else 'pil', []).append(
+                    _host_ms(transforms.load_rgb, paths))
+        out[label] = dict(images=len(paths), **row)
+        print('  load_rgb, %s (%d images, %d rounds, in turns): native %s '
+              'ms an image, PIL %s' % (label, len(paths), DECODE_ROUNDS,
+                                       ['%.2f' % v for v in row['native']],
+                                       ['%.2f' % v for v in row['pil']]))
+
+    # the cgan command's input path, stage by stage
+    opt = TrainOptions().parse(CGAN_FLAGS + ON_CARD + [
+        '--compute_dtype', 'bfloat16', '--name', SPLIT_NAME,
+        '--max_dataset_size', str(TRAIN_IMAGES)])
+    model = create_model(opt)
+    split = {}
+    for on in (True, False):
+        with native_decode(on):
+            loader = CreateDataLoader(opt)
+            ds = loader.dataset
+            idx = list(range(len(loader)))
+            rng = np.random.default_rng(0)
+            st = dict(
+                decode=_host_ms(lambda i: transforms.load_rgb(
+                    ds.A_paths[i]), idx),
+                get=_host_ms(lambda i: ds.get(i, rng), idx))
+            sample = ds.get(0, rng)
+            st['resize_augment'] = st['get'] - st['decode']
+            st['collate'] = _host_ms(
+                lambda _: data_loader._collate([sample]), idx)
+            batch = data_loader._collate([sample])
+
+            def set_input(_):
+                model.set_input(batch)
+                torch.cuda.synchronize()
+            st['set_input'] = _host_ms(set_input, idx)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader.load_data())
+            st['loader_ms_a_batch'] = 1e3 * (time.perf_counter() - t0) / n
+            split['native' if on else 'pil'] = st
+            print('  cgan input path, %s: load_rgb %.2f ms, dataset.get %.2f '
+                  '(resize and augmentation %.2f), collate %.3f, set_input '
+                  '%.3f; the loader alone (%d threads) %.2f ms a batch' % (
+                      'native' if on else '--no_native_io', st['decode'],
+                      st['get'], st['resize_augment'], st['collate'],
+                      st['set_input'], opt.nThreads,
+                      st['loader_ms_a_batch']))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out['cgan_split'] = split
+
+    # the train entry point on the cgan command, per step and chunked
+    runs = {}
+    for on in (True, False):
+        tag = 'native' if on else 'pil'
+        extra = [] if on else ['--no_native_io']
+        with native_decode(True):
+            name = '%s_%s' % (SPLIT_NAME, tag)
+            runs[tag] = dict(per_step=run_train(
+                CGAN_FLAGS + ON_CARD + extra
+                + _epoch_flags(name, 'bfloat16', TRAIN_IMAGES),
+                name, TRAIN_IMAGES, CGAN_PER_STEP))
+            check(transforms._NATIVE_IO is on, 'the train entry point left '
+                  'the decoder %s' % ('off' if on else 'on'))
+            runs[tag]['chunked'] = cgan_chunked_train(
+                extra, '%s_chunked_%s' % (SPLIT_NAME, tag))
+        print('  cgan train, %s: per step %.1f ms (median), chunked %.2f ms '
+              'a replayed step' % (tag, runs[tag]['per_step'][
+                  'median_step_ms'], runs[tag]['chunked'][
+                      'replay_ms_per_step']))
+    out['cgan_train'] = runs
+    return out
+
+
+def phase_gate_sites(known):
+    """The kernel sites of one f32 step of the gate's GAN (GATE_ARGS'
+    widths: its CRN is 16 channels wide) and of one
+    segmentation step and val forward, recorded as record_step_sites does;
+    their totals against GATE_PER_STEP, SEG_PER_STEP and SEG_PER_FORWARD;
+    the sites no earlier path has, printed, each with its plan checked."""
+    _, gan_train, _, ss_train = quality_eval.build_args(GATE_PX, GATE_NGF)
+    common = ['--dataroot', GATE_SET, '--checkpoints_dir', CKPT_DIR]
+    paths = {}
+    m = create_model(TrainOptions().parse(gan_train + common + ON_CARD + [
+        '--name', GATE_NAME + '_sites']))
+    check(m.opt.compute_dtype == 'float32', 'the gate runs in %s'
+          % m.opt.compute_dtype)
+    m.set_input(fixed_batch(px=GATE_PX))
+    paths['gate GAN step'] = record_step_sites(m.optimize_parameters)
+    del m
+    seg = create_model(TrainOptions().parse(ss_train + common + ON_CARD + [
+        '--name', GATE_NAME + '_seg_sites']))
+    seg.set_input(fixed_batch(px=GATE_PX))
+    paths['gate segmentation step'] = record_step_sites(
+        seg.optimize_parameters)
+    paths['gate segmentation forward'] = record_step_sites(
+        lambda: seg.forward(val_mode=True))
+    del seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    want_of = {'gate GAN step': GATE_PER_STEP,
+               'gate segmentation step': SEG_PER_STEP,
+               'gate segmentation forward': SEG_PER_FORWARD}
+    return report_sites(paths, want_of, known), paths
+
+
+def gate_launches():
+    """The launches each of the smoke gate's driver runs must make:
+    GATE_PER_STEP a GAN step (2 epochs of the train split), GATE_PER_SAMPLE
+    a sample, SEG_PER_STEP a segmentation step and SEG_PER_FORWARD a val or
+    test forward (train_ss validates after each of its 2 epochs)."""
+    n_train, n_val, n_test = GATE_COUNTS
+    ss = expected(_plus(*[SEG_PER_STEP] * GATE_SAMPLES
+                        + [SEG_PER_FORWARD] * n_val), 2)
+    ss_ub = expected(_plus(*[SEG_PER_STEP] * n_train
+                           + [SEG_PER_FORWARD] * n_val), 2)
+    test = expected(SEG_PER_FORWARD, n_test)
+    return {'gan_train': expected(GATE_PER_STEP, 2 * n_train),
+            'gan_sample': expected(GATE_PER_SAMPLE, GATE_SAMPLES),
+            'ss_train': ss, 'ss_test': test, 'ss_ub_train': ss_ub,
+            'ss_ub_test': test, 'ss_neg_train': ss, 'ss_neg_test': test}
+
+
+def phase_gate():
+    """The port's quality gate (supervised_gan_tpu_torch/quality_eval.py,
+    GATE_ARGS) on the card, each driver run in-process with the launch
+    counts set to 0 just before and read just after: every run completes
+    with its exact launches, the sampler's *AB* pairs decode natively,
+    the three rows' RandScore and meanIU lie in [0, 1] and every metric
+    is finite.  Random-start weights trained for 2 epochs: quality is not
+    measured here."""
+    counts = {}
+
+    def in_process(driver, args, log):
+        K.reset_launch_counts()
+        with open(log, 'w') as f, contextlib.redirect_stdout(f):
+            DRIVER_MAINS[driver](args)
+        torch.cuda.synchronize()
+        counts[os.path.basename(log)[:-len('.log')]] = K.launch_counts()
+        return 0
+
+    with native_decode(True):
+        result, gate = quality_eval.evaluate(
+            quality_eval.parser().parse_args(GATE_ARGS), in_process)
+    want = gate_launches()
+    check(set(counts) == set(want), 'gate runs %s' % sorted(counts))
+    for tag, c in counts.items():
+        check(c == want[tag], 'gate %s: launches %s, expected %s'
+              % (tag, c, want[tag]))
+    pairs = _pngs(os.path.join(gate.gen, 'train'))
+    check(len(pairs) == GATE_SAMPLES and all('AB' in p for p in pairs),
+          'gate pairs %s' % pairs)
+    for p in pairs:
+        a = native_io.decode_png(p)
+        check(a is not None and a.shape == (GATE_PX, GATE_PX, 3),
+              'gate pair %s does not decode natively' % p)
+    for row in ('ours', 'real_pairs_upper_bound',
+                'negative_control_label_shuffled'):
+        m = result[row]
+        check(set(m) == {'RandScore', 'meanIU', 'CE_mean', 'CE_std'}
+              and all(np.isfinite(v) for v in m.values())
+              and 0 <= m['RandScore'] <= 1 and 0 <= m['meanIU'] <= 1,
+              'gate %s: metrics %s' % (row, m))
+    print('  gate runs (s): %s' % ', '.join(
+        '%s %.1f' % kv for kv in gate.seconds.items()))
+    print('  gate rows (2 + 2 epochs, random start; not a quality number): '
+          'ours %s, bound %s, control %s' % (
+              result['ours'], result['real_pairs_upper_bound'],
+              result['negative_control_label_shuffled']))
+    return dict(result=result, run_seconds=gate.seconds, launches=counts,
+                launches_expected=want)
+
+
 def main():
     t_start = time.time()
     torch.backends.cudnn.allow_tf32 = False
@@ -4232,6 +4554,8 @@ def main():
     reports = build.build_all()
     print('built %d kernel libraries in %.1f s' % (len(reports),
                                                     time.time() - t0))
+    t0 = time.time()
+    print('PNG decoder: %s (%.1f s)' % (native_io.build(), time.time() - t0))
     for name, log in sorted(reports.items()):
         for line in log.splitlines():
             if 'registers' in line or 'spill' in line:
@@ -4530,6 +4854,27 @@ def main():
     zoo_seconds = time.time() - t_zoo
     print('zoo phases: %.1f s' % zoo_seconds)
 
+    print('== the host image path: the native PNG decoder against PIL, the '
+          'cgan command\'s input path by stage, its train entry point with '
+          'the decoder and with --no_native_io')
+    t_decode = time.time()
+    decode = phase_decode()
+    decode_seconds = time.time() - t_decode
+    print('decode phase: %.1f s' % decode_seconds)
+    print('== the quality gate (quality_eval, 512 px, ngf 16): its kernel '
+          'sites, and those no earlier path has')
+    t_gate = time.time()
+    gate_books, gate_paths = phase_gate_sites(
+        [books] + list(new_paths.values()) + list(ts_paths.values())
+        + list(last_paths.values()) + list(zoo_paths.values()))
+    print('== kernels vs plain versions at the gate\'s new sites')
+    per_site_gate, agg_gate = run_cases(new_site_cases(gate_books))
+    print('== the gate: train, test, train_ss, test_ss (bound and control '
+          'too), in-process, exact launches')
+    gate = phase_gate()
+    gate_seconds = time.time() - t_gate
+    print('gate phases: %.1f s' % gate_seconds)
+
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
                  'instance_norm_bwd', 'conv4s2', 'conv3x3_in_stats',
@@ -4630,6 +4975,15 @@ def main():
                                  for k, v in b.items()}
                           for path, b in zoo_paths.items()},
                       seconds=zoo_seconds),
+                  decode=dict(decode, seconds=decode_seconds),
+                  gate=dict(
+                      gate, launches_per_step=GATE_PER_STEP,
+                      sites=per_site_gate, site_sums=agg_gate,
+                      site_books={
+                          path: {k: {repr(s_): c for s_, c in v.items()}
+                                 for k, v in b.items()}
+                          for path, b in gate_paths.items()},
+                      seconds=gate_seconds),
                   new_site_books={
                       path: {k: {repr(s_): c for s_, c in v.items()}
                              for k, v in b.items()}

@@ -3,9 +3,11 @@ loader.py.
 
 Replaces the reference's multiprocess ``torch.utils.data.DataLoader``
 (data/custom_dataset_data_loader.py:31-35) with a thread-pool prefetcher:
-PIL decode / augmentation release the GIL, the queue keeps a couple of
-batches ahead of the device, and epoch shuffling is a seeded permutation so
-the stream is reproducible under --manualSeed.
+the native PNG decode (data/native_io.py), PIL and the augmentation
+release the GIL, the queue keeps a couple of batches ahead of the device,
+and epoch shuffling is a seeded permutation so the stream is reproducible
+under --manualSeed.  ``--no_native_io`` switches the native decoder off
+for the process, as in the JAX loader.
 
 Yields dicts of stacked numpy arrays: {'A': (B,H,W,3) float32, 'A_paths':
 [str], ...} — NHWC; the model's set_input moves them to the device as NCHW.
@@ -32,6 +34,9 @@ def _collate(samples):
 class DataLoader:
     def __init__(self, opt):
         self.opt = opt
+        if getattr(opt, 'no_native_io', False):
+            from . import transforms
+            transforms._NATIVE_IO = False
         self.dataset = CreateDataset(opt)
         self.batch_size = opt.batchSize
         self.serial = opt.serial_batches

@@ -1,6 +1,6 @@
 """Image load + augmentation transforms: a copy of supervised_gan_tpu/data/
-transforms.py, decoding with PIL (the JAX package's native PNG decoder,
-data/native_io.py with csrc/dataio.cpp, is not ported).
+transforms.py.  PNGs are decoded by the native decoder (data/native_io.py
+with csrc/dataio.cpp), other files and PNGs outside its scope by PIL.
 
 Replicates the reference augmentation semantics (data/base_dataset.py:17-55):
 bilinear resize to loadSize, random crop to fineSize, random horizontal
@@ -18,8 +18,19 @@ import numpy as np
 from PIL import Image
 
 
+_NATIVE_IO = os.environ.get('SGAN_TPU_NO_NATIVE_IO', '') == ''
+
+
 def load_rgb(path):
-    """Load an image as PIL RGB."""
+    """Load an image as PIL RGB. PNGs go through the native (GIL-free)
+    decoder -- bit-exact with PIL since PNG is lossless -- so the loader's
+    threads decode side by side; a PNG outside its scope goes to PIL.  Set
+    SGAN_TPU_NO_NATIVE_IO=1 (or pass --no_native_io) to force PIL."""
+    if _NATIVE_IO and path.endswith(('.png', '.PNG')):
+        from . import native_io
+        arr = native_io.decode_png(path)
+        if arr is not None:
+            return Image.fromarray(arr)
     return Image.open(path).convert('RGB')
 
 
