@@ -9,8 +9,8 @@ the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal),
 segmentation_cycle, --model test (resnet_9blocks), the rest of the
 network zoo (fcgan_star, the autoencoder, n_layers_sep, the dcgan G and D)
 on the recipes that select them, the native PNG decoder and the loader,
-the quality gate (quality_eval), and the bench entry points on one CUDA
-card, on the hand-written kernels and under
+the quality gate (quality_eval), data parallelism (--data_mesh), and the
+bench entry points on one CUDA card, on the hand-written kernels and under
 --no_pallas, and hold every hand-written kernel against its plain PyTorch
 version.
 
@@ -127,16 +127,17 @@ comparison is float32 against float32.
      the card through the kernels and on the CPU through the plain versions
      with the same weights, noise and batch, the CPU's D banks set to the
      card's after the D updates: each loss term within 1e-3 relative and
-     every parameter's gradient within 5e-2 relative in L2, beside the
-     noise floor of a CPU step with weights scaled by 1 + 1e-6 N(0, 1)
-     (see phase_reference_step); then the same with the card's step under
+     every parameter's gradient within 5e-2 relative in L2 (the bf16
+     step's limits also take the noise floor of a CPU step with weights
+     scaled by 1 + 1e-6 N(0, 1); see phase_reference_step); then the same
+     with the card's step under
      --no_pallas (library calls, no launch); then the train entry point
      with --profile_dir, 20 f32 steps, its trace of steps 10-20 written
      with every launch's device record (phase_profile_dir); then the bench
      entry point (supervised_gan_tpu_torch.bench.main) in turns: kernels
      bf16, --no_pallas bf16, --no_pallas f32, kernels f32, each 3 windows
-     of BENCH_WINDOW_STEPS steps per step and chunked (one chunk of 10) and
-     a BENCH_TRACE_STEPS-step trace (one chunk traced), its
+     of BENCH_WINDOW_STEPS steps per step and chunked (one chunk of
+     BENCH_CHUNK) and a BENCH_TRACE_STEPS-step trace (one chunk traced), its
      record printed, finite, its device fields set, its wrappers' launches
      a step those of this phase (all 0 under --no_pallas; phase_bench);
      Then the chunked dispatch (--steps_per_dispatch, a CUDA graph of the
@@ -269,7 +270,19 @@ comparison is float32 against float32.
      *AB* pairs decoded natively, RandScore and meanIU within [0, 1] and
      every metric finite for the GAN pairs, the real-pairs bound and the
      label-shuffled control;
- 21. a JSON line of per-kernel results (launches: the DSGAN train step's),
+ 21. data parallelism (supervised_gan_tpu_torch/parallel/): train
+     --data_mesh 2 on this one-card machine raises the fewer-cards error;
+     two gloo ranks sharing cuda:0 (parallel.init_distributed with an
+     explicit backend; NCCL refuses two ranks a card), one row each of the
+     bench DSGAN configuration's global batch 2 in f32, DM_STEPS steps,
+     against DM_RUNS one-process runs of the batch: each rank's launches
+     the batch-1 step's, the ranks' states bitwise equal, the losses and
+     every parameter, Adam moment and pool within twice the one-process
+     runs' spread, at least twice DM_SPREAD_FLOOR (dm_limits); each rank's
+     ms a step beside the one process's, on the card line; an NCCL group of
+     one: one step with the gradient hook and the BatchNorm all-reduce on,
+     bitwise equal to the step without a group (deterministic algorithms);
+ 22. a JSON line of per-kernel results (launches: the DSGAN train step's),
      the card line, and the last line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
@@ -310,6 +323,7 @@ from supervised_gan_tpu_torch import bench  # noqa: E402
 from supervised_gan_tpu_torch import bench_extra  # noqa: E402
 from supervised_gan_tpu_torch import recon  # noqa: E402
 from supervised_gan_tpu_torch import nn as tnn  # noqa: E402
+from supervised_gan_tpu_torch import parallel  # noqa: E402
 from supervised_gan_tpu_torch import quality_eval  # noqa: E402
 from supervised_gan_tpu_torch import test as sampler  # noqa: E402
 from supervised_gan_tpu_torch import test_ss  # noqa: E402
@@ -599,6 +613,15 @@ KERNEL_INFO = {
 def check(cond, msg):
     if not cond:
         raise RuntimeError('chip_smoke: ' + msg)
+
+
+T_START = time.time()
+
+
+def heading(msg):
+    """A phase's heading, with the seconds since the script started (where
+    the run's time goes)."""
+    print('%s  [%.1f s]' % (msg, time.time() - T_START), flush=True)
 
 
 def expected(per_unit, units):
@@ -2281,11 +2304,12 @@ def phase_reference_step(gate=False, dtype='float32', no_pallas=False):
     the CPU's D banks take the card's updated parameters before its G
     update.  What is left is rounding, which this step amplifies (IN over
     the 8^2-16^2 planes of the deep D and F2 layers, activation kinks, real
-    against fake in the D losses).  For scale, the phase also runs the CPU
-    step with every weight scaled by 1 + 1e-6 N(0, 1), a few f32 ulps (in
-    bf16 it flips the rounding of the weights that lie that close to a bf16
-    boundary), and prints how far that moves each gradient: the noise
-    floor."""
+    against fake in the D losses).  Where the limits take it (bf16), the
+    phase also runs the CPU step with every weight scaled by 1 + 1e-6 N(0,
+    1), a few f32 ulps (in bf16 it flips the rounding of the weights that
+    lie that close to a bf16 boundary), and prints how far that moves each
+    gradient: the noise floor.  The f32 steps' limits do not take it, so
+    they skip that second CPU step (~20 s each)."""
     bf16 = dtype == 'bfloat16'
     tag = '_ref%s%s%s' % ('_gated' if gate else '', '_bf16' if bf16 else '',
                           '_no_pallas' if no_pallas else '')
@@ -2358,15 +2382,18 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
     worst_metric = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
                        for k in m_cpu)
     worst = _grad_diffs(card, cpu, noise_only)
-    noisy = cpu_model(tag + '_cpu_noisy')
-    pg = torch.Generator().manual_seed(12)
-    with torch.no_grad():
-        for net in noisy.nets().values():
-            for p in net.parameters():
-                p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=pg))
-    recipe.parts(noisy, d_from=card)
-    floor = {n: a for a, _, n in _grad_diffs(noisy, cpu, noise_only)}
-    del noisy
+    # the noise floor, where the limits take it; else not measured (0)
+    floor = {n: 0.0 for _, _, n in worst}
+    if floor_factor:
+        noisy = cpu_model(tag + '_cpu_noisy')
+        pg = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            for net in noisy.nets().values():
+                for p in net.parameters():
+                    p.mul_(1 + 1e-6 * torch.randn(p.shape, generator=pg))
+        recipe.parts(noisy, d_from=card)
+        floor = {n: a for a, _, n in _grad_diffs(noisy, cpu, noise_only)}
+        del noisy
     # per parameter: (card vs CPU, its floor, its limit), nearest the limit
     # first
     held = sorted(((a, floor[n], max(grad_tol, floor_factor * floor[n]), n)
@@ -2378,9 +2405,10 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
               dtype, card_s, cpu_s, m_card, m_cpu, worst_metric, loss_tol))
     print('  gradients, card vs CPU (L2 rel, max-entry rel): %s'
           % [(round(a, 6), round(b, 6), n) for a, b, n in worst[:5]])
-    print('  noise floor, CPU with weights x (1 + 1e-6 N) vs CPU: %s'
-          % [(round(f, 6), n) for f, n in sorted(
-              ((f, n) for n, f in floor.items()), reverse=True)[:5]])
+    if floor_factor:
+        print('  noise floor, CPU with weights x (1 + 1e-6 N) vs CPU: %s'
+              % [(round(f, 6), n) for f, n in sorted(
+                  ((f, n) for n, f in floor.items()), reverse=True)[:5]])
     print('  nearest their limit max(%g, %g x own floor), (card vs CPU, '
           'floor, limit): %s' % (grad_tol, floor_factor, [
               (round(a, 6), round(f, 6), round(lim, 6), n)
@@ -2397,23 +2425,26 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
                losses_cpu=m_cpu, worst_loss_rel=worst_metric,
                loss_tol=loss_tol, grad_tol=grad_tol,
                floor_factor=floor_factor, worst_grads=worst[:10],
-               held=held, limits_by_floor=by_noise, params=len(worst))
+               held=held, limits_by_floor=by_noise, params=len(worst),
+               floor_measured=bool(floor_factor))
     del card, cpu
     torch.cuda.empty_cache()
     return out
 
 
 # The bench entry point's arms, run in turns: (name, flags after its
-# DSGAN_ARGS).  Its command line runs 3 windows of 30 steps and a 12-step
-# trace; here the windows are BENCH_WINDOW_STEPS steps and the trace
-# BENCH_TRACE_STEPS, which keeps this script within twice its time before
-# the phase was added.
+# DSGAN_ARGS).  Its command line runs 3 windows of 30 steps in chunks of 10
+# and a 12-step trace; here the windows are BENCH_WINDOW_STEPS steps in
+# chunks of BENCH_CHUNK and the trace BENCH_TRACE_STEPS, which keeps this
+# script inside its time limit (17 bench runs over the paths; with 10-step
+# windows the script took over 1100 s of its 1200 on a slow host).
 BENCH_ARMS = (('kernels bf16', []),
               ('no_pallas bf16', ['--no_pallas']),
               ('no_pallas f32', ['--no_pallas', '--compute_dtype', 'float32']),
               ('kernels f32', ['--compute_dtype', 'float32']))
 BENCH_WINDOWS = 3
-BENCH_WINDOW_STEPS = 10
+BENCH_WINDOW_STEPS = 5
+BENCH_CHUNK = 5
 BENCH_TRACE_STEPS = 4
 BENCH_DEVICE_FIELDS = ('device_ms_per_step', 'device_kernels_per_step',
                        'busy_share', 'host_gap_ms', 'device_rate_img_s',
@@ -2482,7 +2513,7 @@ def _bench_arms(arms, bench_fn, per_step):
                 flags + ['--checkpoints_dir', CKPT_DIR, '--name',
                          '%s_bench_%s' % (NAME, name.replace(' ', '_'))],
                 windows=BENCH_WINDOWS, window_steps=BENCH_WINDOW_STEPS,
-                trace_steps=BENCH_TRACE_STEPS),
+                chunk=BENCH_CHUNK, trace_steps=BENCH_TRACE_STEPS),
             '--no_pallas' not in flags, per_step)
     K.set_kernels_enabled(True)
     return out
@@ -4534,6 +4565,274 @@ def phase_gate():
                 launches_expected=want)
 
 
+# Data parallelism (--data_mesh, supervised_gan_tpu_torch/parallel/): the
+# bench DSGAN configuration in f32 at the global batch DM_BATCH, DM_STEPS
+# steps.  The sharded run and the one-process runs part by rounding (each
+# rank's kernels run at batch 1, with their own plans and sums; the
+# library's nondeterministic backward), which the GAN step amplifies: on an
+# H100 the sharded run lands 1.17-1.21e-3 (whole state, relative L2) from
+# one process, two one-process runs 0.4-2.8e-4 from each other (8 rounds
+# of scripts/data_mesh_spread.py and 3 runs of this phase; PERF.md).
+# DM_SPREAD_FLOOR, the largest sharded-vs-one-process distances of those
+# rounds and of the phase's own first runs (whole state, worst tensor, a
+# loss relative to its value), rounded up, floors the check's limits:
+# twice the largest one-process pair, at least twice the floor
+# (dm_limits).  On the CPU the same split agrees with one process within
+# 1e-12 in float64 (tests/test_torch_parallel.py).
+DM_NAME = 'chip_smoke_dm'
+DM_BATCH = 2
+DM_STEPS = 2
+DM_RUNS = 2
+DM_JOIN_TIMEOUT = 300
+DM_SPREAD_FLOOR = {'whole': 1.21e-3, 'worst': 0.171, 'loss': 7.1e-5}
+
+
+def _dm_batches():
+    """The global batch of each step: DM_BATCH rows of fixed_batch."""
+    out = []
+    for s_ in range(DM_STEPS):
+        rows = [fixed_batch(seed=20 + DM_BATCH * s_ + i)
+                for i in range(DM_BATCH)]
+        out.append({'A': np.concatenate([r['A'] for r in rows]),
+                    'A_paths': ['%d_%d.png' % (s_, i)
+                                for i in range(DM_BATCH)]})
+    return out
+
+
+def _dm_model(label, extra=()):
+    return create_model(train_opt(
+        ['--compute_dtype', 'float32', '--batchSize', str(DM_BATCH),
+         '--name', '%s_%s' % (DM_NAME, label)] + list(extra)))
+
+
+def _dm_steps(model):
+    """DM_STEPS steps on _dm_batches, each timed to a synchronize, launch
+    counts set to 0 just before and read just after; then the state on the
+    host."""
+    K.reset_launch_counts()
+    ms = []
+    for b in _dm_batches():
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    counts = K.launch_counts()
+    state, losses = _model_state(model)
+    return dict(ms=ms, counts=counts, losses=parallel.mean_values(losses),
+                state={k: v.cpu() for k, v in state.items()})
+
+
+def _dm_rank(rank, port, out):
+    """One of two gloo ranks sharing cuda:0 (spawned): the sharded steps,
+    written to ``out``/dm_rank<rank>.pt, with the wall ms of each all-reduce
+    (BatchNorm's statistics, the gradients), each timed from an idle
+    device."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inner, spans = parallel.mesh._all_reduce_sum_, []
+
+    def timed(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_ = inner(t)
+        torch.cuda.synchronize()
+        spans.append(1e3 * (time.perf_counter() - t0))
+        return out_
+    parallel.mesh._all_reduce_sum_ = timed
+    parallel.init_distributed('127.0.0.1:%d' % port, DM_BATCH, rank,
+                              backend='gloo', device=DEV,
+                              timeout_s=DM_JOIN_TIMEOUT)
+    try:
+        model = _dm_model('rank%d' % rank, ['--data_mesh', str(DM_BATCH)])
+        r = _dm_steps(model)
+        r['all_reduce_ms'] = spans
+        torch.save(r, os.path.join(out, 'dm_rank%d.pt' % rank))
+    finally:
+        parallel.shutdown()
+        parallel.mesh._all_reduce_sum_ = inner
+
+
+def dm_sharded_run():
+    """DM_BATCH gloo ranks on cuda:0, one row each: their results."""
+    port = parallel.mesh.free_port()
+    ctx = torch.multiprocessing.start_processes(
+        _dm_rank, args=(port, RESULTS_DIR), nprocs=DM_BATCH, join=False,
+        start_method='spawn')
+    deadline = time.time() + DM_JOIN_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.time() < deadline, 'the data-mesh ranks did not end '
+                  'within %d s' % DM_JOIN_TIMEOUT)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [torch.load(os.path.join(RESULTS_DIR, 'dm_rank%d.pt' % r),
+                       weights_only=True) for r in range(DM_BATCH)]
+
+
+def dm_limits(pairs, losses, floor=DM_SPREAD_FLOOR):
+    """Twice the largest one-process pair (_state_diff results) of the whole
+    state's and the worst tensor's relative L2 and of each loss, each at
+    least twice ``floor`` (a loss's floor relative to its value)."""
+    limits = {m: 2 * max([p[m] for p in pairs.values()] + [floor[m]])
+              for m in ('whole', 'worst')}
+    for k, v in losses.items():
+        limits[k] = 2 * max([p['losses'][k] for p in pairs.values()]
+                            + [floor['loss'] * abs(v)])
+    return limits
+
+
+def dm_compare():
+    """DM_RUNS one-process runs and one sharded run of DM_STEPS steps from
+    one seed: every state and loss, the distances, and the step times."""
+    ones = []
+    for i in range(DM_RUNS):
+        model = _dm_model('one%d' % i)
+        ones.append(_dm_steps(model))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = dm_sharded_run()
+
+    def st(r):
+        return r['state'], r['losses']
+    pairs = {'one%d-one%d' % (i, j): _state_diff(st(ones[i]), st(ones[j]))
+             for i in range(DM_RUNS) for j in range(i + 1, DM_RUNS)}
+    sharded = {'rank0-one%d' % i: _state_diff(st(o), st(ranks[0]))
+               for i, o in enumerate(ones)}
+    return ones, ranks, pairs, sharded
+
+
+def phase_data_mesh():
+    """(c) train --data_mesh 2 on this one-card machine raises; (a) two gloo
+    ranks on cuda:0 (one row each of the global batch DM_BATCH) against
+    DM_RUNS one-process runs of the batch: losses and every parameter, Adam
+    moment and pool within dm_limits, each rank's launches the batch-1
+    step's, the ranks' states bitwise equal; (b) a process group of one
+    (NCCL): one step with the gradient hook and the BatchNorm all-reduce on,
+    bitwise equal to the step without a group (deterministic algorithms)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    try:
+        trainer.main(TRAIN_FLAGS + ON_CARD + [
+            '--batchSize', '2', '--data_mesh', '2', '--name',
+            DM_NAME + '_cards'])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and 'fewer cards than workers' in raised
+          and 'has %d cards' % cards in raised,
+          'train --data_mesh 2 on %d card(s) did not raise the fewer-cards '
+          'error: %r' % (cards, raised))
+    print('  --data_mesh 2 on %d card(s): %s' % (cards, raised))
+
+    ones, ranks, pairs, sharded = dm_compare()
+    expect = expected(LAUNCHES_PER_STEP, DM_STEPS)
+    for i, r in enumerate(ones):
+        check(r['counts'] == expect, 'one-process batch-%d run %d: launches '
+              '%s, expected %s' % (DM_BATCH, i, r['counts'], expect))
+    for rank, r in enumerate(ranks):
+        check(r['counts'] == expect, 'data-mesh rank %d: launches %s, '
+              'expected the batch-1 step\'s %s' % (rank, r['counts'], expect))
+        d = _state_diff((ranks[0]['state'], ranks[0]['losses']),
+                        (r['state'], r['losses']))
+        check(d['differ'] == 0 and not any(d['losses'].values()),
+              'data-mesh rank %d: %d tensors differ from rank 0 (%s), '
+              'losses %s' % (rank, d['differ'], d['name'], d['losses']))
+    limits = dm_limits(pairs, ones[0]['losses'])
+    over = {n: _over_limits(d, limits) for n, d in sharded.items()}
+    for n, d in sharded.items():
+        print('  %s: whole %.3g, worst %.3g (%s), losses %s'
+              % (n, d['whole'], d['worst'], d['name'], d['losses']))
+    for n, d in pairs.items():
+        print('  %s: whole %.3g, worst %.3g (%s)'
+              % (n, d['whole'], d['worst'], d['name']))
+    check(not any(over.values()), 'data-mesh steps beyond the limits %s: %s'
+          % (limits, over))
+    rank_ms = [statistics.median(r['ms'][1:]) for r in ranks]
+    one_ms = statistics.median(o['ms'][-1] for o in ones)
+    # the all-reduces of the last step (each step makes as many)
+    per_step = len(ranks[0]['all_reduce_ms']) // DM_STEPS
+    reduce_ms = [sum(r['all_reduce_ms'][-per_step:]) for r in ranks]
+    print('data mesh on %s: %d gloo ranks on one card, batch 1 each: %s ms '
+          'a step (rank 0, 1), %s ms of it in %d all-reduces through the '
+          'host; one process, batch %d: %.1f ms a step'
+          % (card_line(), DM_BATCH, ', '.join('%.1f' % m for m in rank_ms),
+             ', '.join('%.1f' % m for m in reduce_ms), per_step, DM_BATCH,
+             one_ms))
+
+    world_one = phase_data_mesh_world_one()
+    return dict(cards_error=raised, limits=limits, pairs=pairs,
+                sharded=sharded, rank_step_ms=[r['ms'] for r in ranks],
+                rank_all_reduce_ms=[r['all_reduce_ms'] for r in ranks],
+                one_step_ms=[o['ms'] for o in ones],
+                launches=ranks[0]['counts'], world_one=world_one)
+
+
+def phase_data_mesh_world_one():
+    """(b): the bench configuration, f32, batch 1, one step from seed 0
+    under deterministic algorithms, in an NCCL group of one (the gradient
+    hook and the BatchNorm all-reduce active) and with no group."""
+    calls = collections.Counter()
+    inner = parallel.mesh._all_reduce_sum_
+
+    def counted(t):
+        calls['all_reduce'] += 1
+        return inner(t)
+    results = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    parallel.mesh._all_reduce_sum_ = counted
+    try:
+        for label in ('group', 'none'):
+            calls.clear()
+            if label == 'group':
+                parallel.init_distributed(
+                    '127.0.0.1:%d' % parallel.mesh.free_port(), 1, 0,
+                    backend='nccl', device=DEV, timeout_s=DM_JOIN_TIMEOUT)
+            try:
+                model = create_model(train_opt([
+                    '--compute_dtype', 'float32', '--name',
+                    '%s_one_%s' % (DM_NAME, label)]))
+                hooks = [len(o._optimizer_step_pre_hooks)
+                         for o in model.optimizers().values()]
+                model.set_input(fixed_batch(seed=30))
+                model.optimize_parameters()
+                torch.cuda.synchronize()
+                state, losses = _model_state(model)
+                results[label] = dict(
+                    state={k: v.cpu() for k, v in state.items()},
+                    losses=losses, hooks=hooks,
+                    all_reduces=calls['all_reduce'])
+                del model
+            finally:
+                parallel.shutdown()
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        parallel.mesh._all_reduce_sum_ = inner
+        torch.use_deterministic_algorithms(False)
+    g, n = results['group'], results['none']
+    check(all(h == 1 for h in g['hooks']) and g['all_reduces'] > 0,
+          'in the group of one: hooks %s, %d all-reduces'
+          % (g['hooks'], g['all_reduces']))
+    check(not any(n['hooks']) and n['all_reduces'] == 0,
+          'without a group: hooks %s, %d all-reduces'
+          % (n['hooks'], n['all_reduces']))
+    d = _state_diff((n['state'], n['losses']), (g['state'], g['losses']))
+    check(d['differ'] == 0 and not any(d['losses'].values()),
+          'the step in a group of one differs from the step without one: '
+          '%d tensors (%s), losses %s' % (d['differ'], d['name'], d['losses']))
+    print('  NCCL group of one: %d all-reduces in the step (BatchNorm and '
+          'the gradient hook), %d tensors and the losses bitwise equal to '
+          'the step without a group' % (g['all_reduces'], len(g['state'])))
+    return dict(all_reduces=g['all_reduces'], tensors=len(g['state']),
+                hooks=g['hooks'])
+
+
 def main():
     t_start = time.time()
     torch.backends.cudnn.allow_tf32 = False
@@ -4549,7 +4848,7 @@ def main():
             shutil.rmtree(os.path.join(CKPT_DIR, d))
     shutil.rmtree(RESULTS_DIR, ignore_errors=True)
 
-    print('== build')
+    heading('== build')
     t0 = time.time()
     reports = build.build_all()
     print('built %d kernel libraries in %.1f s' % (len(reports),
@@ -4575,15 +4874,15 @@ def main():
     check(spills['conv3x3_in'] == 0, 'conv3x3_in: ptxas reports %d bytes of '
           'spills' % spills['conv3x3_in'])
 
-    print('== conv3x3 at ragged shapes, and two runs of one launch')
+    heading('== conv3x3 at ragged shapes, and two runs of one launch')
     conv3_shapes = phase_conv3x3_shapes()
-    print('== conv3x3_dw at ragged shapes, and two runs of one launch')
+    heading('== conv3x3_dw at ragged shapes, and two runs of one launch')
     dw_shapes = phase_conv3x3_dw_shapes()
-    print('== conv4s2 at ragged shapes, and two runs of one launch')
+    heading('== conv4s2 at ragged shapes, and two runs of one launch')
     c4_shapes = phase_conv4s2_shapes()
-    print('== convt4s2 at ragged shapes, and two runs of one launch')
+    heading('== convt4s2 at ragged shapes, and two runs of one launch')
     ct_shapes = phase_convt4s2_shapes()
-    print('== instance_norm_act and instance_norm_bwd at ragged shapes, at '
+    heading('== instance_norm_act and instance_norm_bwd at ragged shapes, at '
           'their routes\' thresholds, and two runs of one launch')
     in_shapes, in_shape_plans = phase_instance_norm_shapes()
     in_ptxas = ptxas_in_kernels()
@@ -4591,16 +4890,16 @@ def main():
     check(in_ptxas and all(v[1] == 0 for v in in_ptxas.values()),
           'IN one-launch kernels spill or are missing: %s' % in_ptxas)
 
-    print('== forward kernels vs plain versions at the 512 px sampler sites')
+    heading('== forward kernels vs plain versions at the 512 px sampler sites')
     per_site, agg = run_cases(sampler_cases())
 
-    print('== the fused conv3x3 + IN region\'s kernels at the CRN trunk sites')
+    heading('== the fused conv3x3 + IN region\'s kernels at the CRN trunk sites')
     per_site_r, agg_r = phase_region()
-    print('== conv3x3_in_stats at ragged shapes and on constant planes')
+    heading('== conv3x3_in_stats at ragged shapes and on constant planes')
     region_shapes = phase_region_shapes()
     agg.update(agg_r)
 
-    print('== the train step\'s sites (one f32 step, bench.py configuration)')
+    heading('== the train step\'s sites (one f32 step, bench.py configuration)')
     books = record_train_sites()
     for name, book in books.items():
         print('  %-17s %3d calls a step at %3d shapes' % (
@@ -4672,16 +4971,16 @@ def main():
           'passes): %s'
           % device_kernels)
 
-    print('== kernels A, B, C, and conv3x3 and convt4s2 as dx, vs plain '
+    heading('== kernels A, B, C, and conv3x3 and convt4s2 as dx, vs plain '
           'versions at the train step\'s sites')
     per_site_t, agg_t = run_cases(train_cases(books))
     per_site += per_site_t
     agg.update(agg_t)
 
-    print('== autograd Functions vs autograd of the plain forwards')
+    heading('== autograd Functions vs autograd of the plain forwards')
     fn_checks = phase_functions(books)
 
-    print('== sampler: DSGAN, 512 px, %d samples' % SAMPLES)
+    heading('== sampler: DSGAN, 512 px, %d samples' % SAMPLES)
     g1, g2 = save_readme_weights()
     r32, counts = run_sampler(DSGAN_FLAGS, SAMPLES,
                               os.path.join(RESULTS_DIR, 'f32'))
@@ -4695,11 +4994,11 @@ def main():
     ips16 = 2 / r16['loop_seconds']
     print('sampler bf16: 2 samples in %.3f s = %.3f images/s; launches %s'
           % (r16['loop_seconds'], ips16, counts16))
-    print('== sampler forward alone: wall and device time per sample')
+    heading('== sampler forward alone: wall and device time per sample')
     fwd = phase_forward(g1, g2)
-    print('== reference: one 512 px sample, card kernels vs CPU plain')
+    heading('== reference: one 512 px sample, card kernels vs CPU plain')
     phase_reference(g1, g2)
-    print('== --no_pallas: one 512 px sample, card library calls vs CPU '
+    heading('== --no_pallas: one 512 px sample, card library calls vs CPU '
           'plain; 2 samples through the sampler, no kernel launched')
     phase_reference(g1, g2, card_kernels=False)
     r_np, counts_np = run_sampler(DSGAN_FLAGS + ['--no_pallas'], 2,
@@ -4707,7 +5006,7 @@ def main():
     K.set_kernels_enabled(True)
     print('sampler --no_pallas: 2 samples in %.3f s; launches %s'
           % (r_np['loop_seconds'], counts_np))
-    print('== sampler with the region\'s gate on: %d samples, and one sample '
+    heading('== sampler with the region\'s gate on: %d samples, and one sample '
           'card vs CPU' % SAMPLES)
     with region_gate(True):
         r_gated, counts_gated = run_sampler(
@@ -4720,36 +5019,36 @@ def main():
     del g1, g2
     torch.cuda.empty_cache()
 
-    print('== training: bench.py DSGAN configuration, 512 px')
+    heading('== training: bench.py DSGAN configuration, 512 px')
     write_train_set()
     train16 = bench_train('bfloat16', TRAIN_IMAGES)
     train32 = bench_train('float32', F32_STEPS)
-    print('== one bf16 train step profiled')
+    heading('== one bf16 train step profiled')
     prof = phase_profile_step(device_kernels)
-    print('== reference: one f32 train step at 512 px, card vs CPU plain')
+    heading('== reference: one f32 train step at 512 px, card vs CPU plain')
     ref_step = phase_reference_step()
-    print('== reference under --no_pallas: one f32 train step at 512 px, '
+    heading('== reference under --no_pallas: one f32 train step at 512 px, '
           'card library calls vs CPU plain')
     ref_step_np = phase_reference_step(no_pallas=True)
-    print('== --profile_dir: a trace of steps 10-20 of a %d-step f32 run'
+    heading('== --profile_dir: a trace of steps 10-20 of a %d-step f32 run'
           % PROFILE_STEPS)
     profile_dir = phase_profile_dir()
-    print('== the bench entry point: kernels and --no_pallas, bf16 and f32, '
+    heading('== the bench entry point: kernels and --no_pallas, bf16 and f32, '
           'in turns')
     bench_arms = phase_bench()
-    print('== the step without a synchronize: one eager bf16 step under '
+    heading('== the step without a synchronize: one eager bf16 step under '
           'set_sync_debug_mode("error")')
     sync_free = phase_sync_free()
-    print('== chunked == eager: %d steps, train_chunk (a captured step '
+    heading('== chunked == eager: %d steps, train_chunk (a captured step '
           'replayed) against eager steps, f32 and bf16, deterministic; one '
           'step with the default algorithms' % CHUNK_STEPS)
     chunk_eq = {dt: phase_chunk_equals_eager(dt)
                 for dt in ('float32', 'bfloat16')}
-    print('== the train entry point with --steps_per_dispatch %d'
+    heading('== the train entry point with --steps_per_dispatch %d'
           % DRIVER_CHUNK)
     chunked_driver = phase_chunked_driver()
 
-    print('== stage 1: the label GAN (--model fcgan), recipe command, 512 px')
+    heading('== stage 1: the label GAN (--model fcgan), recipe command, 512 px')
     stage1_16 = stage1_train('bfloat16', TRAIN_IMAGES)
     stage1_32 = stage1_train('float32', F32_STEPS)
     stage1_name = '%s_bfloat16' % STAGE1_NAME
@@ -4760,65 +5059,65 @@ def main():
     print('stage-1 sampler: 4 samples in %.3f s; launches %s'
           % (r_s1['loop_seconds'], counts_s1))
 
-    print('== hand-off: stage 1\'s G and D_0, D_1 as seq_net_{G1,D1_0,D1_1}')
+    heading('== hand-off: stage 1\'s G and D_0, D_1 as seq_net_{G1,D1_0,D1_1}')
     handoff(stage1_name)
     check_sequential_load()
-    print('== the README DSGAN command (--sequential_train), bf16, region '
+    heading('== the README DSGAN command (--sequential_train), bf16, region '
           'gate on and off')
     readme = {'gate_on': readme_train(True, TRAIN_IMAGES),
               'gate_off': readme_train(False, TRAIN_IMAGES)}
-    print('== reference: one f32 train step with the region\'s gate on, '
+    heading('== reference: one f32 train step with the region\'s gate on, '
           'card vs CPU plain')
     ref_step_gated = phase_reference_step(gate=True)
-    print('== reference: one bf16 train step with the region\'s gate on (the '
+    heading('== reference: one bf16 train step with the region\'s gate on (the '
           'README step), card vs CPU plain, both in bf16')
     ref_step_bf16 = phase_reference_step(gate=True, dtype='bfloat16')
 
-    print('== SGAN step 2 (cgan) and the segmentation gate: their kernel '
+    heading('== SGAN step 2 (cgan) and the segmentation gate: their kernel '
           'sites, and those the DSGAN step does not have')
     t_new = time.time()
     write_seg_set()
     new_books, new_paths = phase_new_sites(books)
-    print('== kernels vs plain versions at the new sites')
+    heading('== kernels vs plain versions at the new sites')
     per_site_new, agg_new = run_cases(new_site_cases(new_books))
-    print('== cgan training: tools/bench_extra.py:54-68, 512 px, bf16')
+    heading('== cgan training: tools/bench_extra.py:54-68, 512 px, bf16')
     cgan16 = cgan_train('bfloat16', TRAIN_IMAGES)
-    print('== cgan training with --steps_per_dispatch %d' % CGAN_CHUNK)
+    heading('== cgan training with --steps_per_dispatch %d' % CGAN_CHUNK)
     cgan_chunked = cgan_chunked_train()
-    print('== cgan: chunked == eager, %d steps, bf16, deterministic'
+    heading('== cgan: chunked == eager, %d steps, bf16, deterministic'
           % CHUNK_STEPS)
     cgan_chunk_eq = phase_cgan_chunk_equals_eager()
-    print('== reference: one f32 cgan iteration at 512 px, card vs CPU plain')
+    heading('== reference: one f32 cgan iteration at 512 px, card vs CPU plain')
     cgan_ref = phase_cgan_reference_step()
-    print('== the conditional sampler (--model cgan), 512 px, bf16')
+    heading('== the conditional sampler (--model cgan), 512 px, bf16')
     cgan_sampler = phase_cgan_sampler('%s_bfloat16' % CGAN_NAME)
-    print('== bench_extra cgan_pix2pix_512: kernels and --no_pallas, bf16')
+    heading('== bench_extra cgan_pix2pix_512: kernels and --no_pallas, bf16')
     cgan_bench = phase_cgan_bench()
-    print('== segmentation: train_ss, then test_ss (quality_eval.py:94-104, '
+    heading('== segmentation: train_ss, then test_ss (quality_eval.py:94-104, '
           '512 px)')
     segmentation = phase_segmentation()
-    print('== the segmentation step as bench arms: kernels and --no_pallas, '
+    heading('== the segmentation step as bench arms: kernels and --no_pallas, '
           'f32')
     seg_bench = phase_seg_bench()
     new_seconds = time.time() - t_new
     print('SGAN step 2 and segmentation phases: %.1f s' % new_seconds)
 
-    print('== the two-stage family (twostage, twostage_factd, the DSGAN\'s '
+    heading('== the two-stage family (twostage, twostage_factd, the DSGAN\'s '
           'training options) and latent inversion: their kernel sites, and '
           'those the DSGAN step does not have')
     t_ts = time.time()
     ts_books, ts_paths = phase_ts_sites(books, stage1_name)
-    print('== kernels vs plain versions at the two-stage family\'s new sites')
+    heading('== kernels vs plain versions at the two-stage family\'s new sites')
     per_site_ts, agg_ts = run_cases(new_site_cases(ts_books))
-    print('== twostage, twostage_factd (README command, bf16) and the '
+    heading('== twostage, twostage_factd (README command, bf16) and the '
           'training options (bench configuration)')
     two_stage = phase_two_stage()
-    print('== latent inversion: recon on stage 1\'s G, 512 px')
+    heading('== latent inversion: recon on stage 1\'s G, 512 px')
     recon_run = phase_recon(stage1_name)
     ts_seconds = time.time() - t_ts
     print('two-stage family and recon phases: %.1f s' % ts_seconds)
 
-    print('== the last recipes (the cgan family, segmentation_cycle, '
+    heading('== the last recipes (the cgan family, segmentation_cycle, '
           '--model test with resnet_9blocks): their kernel sites, and those '
           'no earlier path has')
     t_last = time.time()
@@ -4826,54 +5125,62 @@ def main():
     save_resnet_weights()
     last_books, last_paths = phase_last_sites(
         [books] + list(new_paths.values()) + list(ts_paths.values()))
-    print('== kernels vs plain versions at the last recipes\' new sites')
+    heading('== kernels vs plain versions at the last recipes\' new sites')
     per_site_last, agg_last = run_cases(new_site_cases(last_books))
-    print('== the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal; '
+    heading('== the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal; '
           'tools/bench_extra.py:54-68 widths, 512 px, bf16)')
     family = phase_cgan_family()
-    print('== segmentation_cycle: train_ss, then test_ss (512 px, f32)')
+    heading('== segmentation_cycle: train_ss, then test_ss (512 px, f32)')
     seg_cycle = phase_segmentation_cycle()
-    print('== --model test: resnet_9blocks ngf 64 at 512 px')
+    heading('== --model test: resnet_9blocks ngf 64 at 512 px')
     resnet = phase_resnet_test()
     last_seconds = time.time() - t_last
     print('last recipes\' phases: %.1f s' % last_seconds)
 
-    print('== the rest of the zoo (fcgan_star, the autoencoder and '
+    heading('== the rest of the zoo (fcgan_star, the autoencoder and '
           'n_layers_sep, the dcgan pair): their kernel sites, and those no '
           'earlier path has')
     t_zoo = time.time()
     zoo_books, zoo_paths = phase_zoo_sites(
         [books] + list(new_paths.values()) + list(ts_paths.values())
         + list(last_paths.values()))
-    print('== kernels vs plain versions at the zoo\'s new sites')
+    heading('== kernels vs plain versions at the zoo\'s new sites')
     per_site_zoo, agg_zoo = run_cases(new_site_cases(zoo_books))
-    print('== the zoo paths: Z1 stage 1 with fcgan_star, Z2 SGAN step 2 with '
+    heading('== the zoo paths: Z1 stage 1 with fcgan_star, Z2 SGAN step 2 with '
           'the autoencoder and n_layers_sep, Z3 JointGAN with the dcgan pair '
           '(bf16)')
     zoo = phase_zoo()
     zoo_seconds = time.time() - t_zoo
     print('zoo phases: %.1f s' % zoo_seconds)
 
-    print('== the host image path: the native PNG decoder against PIL, the '
+    heading('== the host image path: the native PNG decoder against PIL, the '
           'cgan command\'s input path by stage, its train entry point with '
           'the decoder and with --no_native_io')
     t_decode = time.time()
     decode = phase_decode()
     decode_seconds = time.time() - t_decode
     print('decode phase: %.1f s' % decode_seconds)
-    print('== the quality gate (quality_eval, 512 px, ngf 16): its kernel '
+    heading('== the quality gate (quality_eval, 512 px, ngf 16): its kernel '
           'sites, and those no earlier path has')
     t_gate = time.time()
     gate_books, gate_paths = phase_gate_sites(
         [books] + list(new_paths.values()) + list(ts_paths.values())
         + list(last_paths.values()) + list(zoo_paths.values()))
-    print('== kernels vs plain versions at the gate\'s new sites')
+    heading('== kernels vs plain versions at the gate\'s new sites')
     per_site_gate, agg_gate = run_cases(new_site_cases(gate_books))
-    print('== the gate: train, test, train_ss, test_ss (bound and control '
+    heading('== the gate: train, test, train_ss, test_ss (bound and control '
           'too), in-process, exact launches')
     gate = phase_gate()
     gate_seconds = time.time() - t_gate
     print('gate phases: %.1f s' % gate_seconds)
+
+    heading('== data parallelism (--data_mesh): too few cards raises; two gloo '
+          'ranks on one card against one process at batch %d; an NCCL group '
+          'of one bitwise equal to no group' % DM_BATCH)
+    t_dm = time.time()
+    data_mesh = phase_data_mesh()
+    dm_seconds = time.time() - t_dm
+    print('data-mesh phase: %.1f s' % dm_seconds)
 
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
@@ -4984,6 +5291,7 @@ def main():
                                  for k, v in b.items()}
                           for path, b in gate_paths.items()},
                       seconds=gate_seconds),
+                  data_mesh=dict(data_mesh, seconds=dm_seconds),
                   new_site_books={
                       path: {k: {repr(s_): c for s_, c in v.items()}
                              for k, v in b.items()}

@@ -135,6 +135,11 @@ def main(args=None, windows=N_WINDOWS, window_steps=WINDOW_STEPS,
     t_setup0 = time.perf_counter()
     opt = TrainOptions().parse(
         list(base) + (sys.argv[1:] if args is None else list(args)))
+    for flag in ('data_mesh', 'dcn_num_processes'):
+        if getattr(opt, flag) > 1:
+            raise NotImplementedError(
+                'bench: --%s %d: the bench measures one card; a data-parallel '
+                'bench is not ported' % (flag, getattr(opt, flag)))
     model = create_model(opt)
     dev = model.device
     cuda = dev.type == 'cuda'

@@ -17,6 +17,14 @@ exact ``--continue_train``.  ``build_G`` and ``build_D_bank`` build a
 generator and a multi-scale discriminator bank from the plain or a
 suffixed (``1``, ``2``) option block.  The JAX package's ``_state.pkl`` is a
 different format and is not read.
+
+Data parallelism (--data_mesh, parallel/mesh.py; JAX models/base.py:244-270,
+533-543 there): in a process group each rank keeps its rows of the global
+batch (``set_input``), of each global noise draw (``noise``) and of each
+pooled batch (the pools stay replicated and see the gathered batch:
+``query_pool``, ``sample_pool``); every Adam averages its gradients over the
+ranks before it steps (``adam``), and a chunk runs its steps eagerly, one
+by one, with no captured graph (as JAX runs chunks under a mesh).
 """
 
 import os
@@ -26,7 +34,7 @@ import torch
 from .graph import StepGraph
 from .pools import (REJECT, decide, draw_decisions, pool_apply, pool_take,
                     sample_rows)
-from .. import nn
+from .. import nn, parallel
 from ..ops.kernels import set_kernels_enabled
 from ..utils import pth as pthio
 
@@ -71,7 +79,9 @@ def adam(groups, beta1, device):
     On a CUDA device it is capturable, with each group's rate a device
     tensor (``set_lr`` writes it in place), so a captured step holds it and
     a decayed rate needs no new capture; eager steps there run the same
-    Adam."""
+    Adam.  In a process group it averages each group's gradients over the
+    ranks before every step (parallel/mesh.py average_gradients), which
+    covers the recipes that call ``.step()`` themselves."""
     cuda = device.type == 'cuda'
     opt = torch.optim.Adam(
         [{'params': list(p),
@@ -80,6 +90,7 @@ def adam(groups, beta1, device):
         betas=(beta1, 0.999), eps=1e-8, capturable=cuda)
     # eager steps run it uncaptured on purpose: no warning about that
     opt._warned_capturable_if_run_uncaptured = True
+    parallel.average_gradients(opt)
     return opt
 
 
@@ -107,6 +118,15 @@ class BaseModel:
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
         os.makedirs(self.save_dir, exist_ok=True)
         self.device = device_from_opt(opt.gpu_ids)
+        if (opt.isTrain and getattr(opt, 'data_mesh', 0) > 1
+                and parallel.world() != opt.data_mesh):
+            raise RuntimeError(
+                '--data_mesh %d trains in a process group of %d ranks, but '
+                'this process is in %s: run it through the train or '
+                'train_ss entry point (parallel.launch)'
+                % (opt.data_mesh, opt.data_mesh,
+                   'one of %d' % parallel.world() if parallel.active()
+                   else 'none'))
         set_kernels_enabled(not opt.no_pallas)
         seed = opt.manualSeed if opt.manualSeed is not None else 0
         self.init_generator = torch.Generator().manual_seed(seed)
@@ -124,10 +144,18 @@ class BaseModel:
         self._rows = None          # this step's pool rows, on the device
         self._graph = None         # the captured step (models/graph.py)
 
-    def noise(self, shape):
-        """N(0, 1) float32 noise on the device from the seeded generator."""
+    def noise_draw(self, shape):
+        """N(0, 1) float32 noise of ``shape`` on the device from the seeded
+        generator: the one draw ``noise`` makes."""
         return torch.randn(shape, generator=self.noise_generator,
                            device=self.device)
+
+    def noise(self, shape, rows=True):
+        """N(0, 1) noise of a global-batch ``shape`` (leading axis
+        --batchSize): in a process group, this rank's rows of it; with
+        ``rows`` False the whole draw (a replicated pool's)."""
+        x = self.noise_draw(shape)
+        return parallel.rows(x) if rows else x
 
     # ----------------------------------------------------------- inputs -- #
     def host_inputs(self, input):
@@ -143,8 +171,10 @@ class BaseModel:
         return t.to(self.device)
 
     def set_input(self, input):
+        """The step inputs of one loader batch; in a process group this
+        rank's rows of it, cut before the host copy."""
         for name, t in self.host_inputs(input).items():
-            setattr(self, name, self.to_device(t))
+            setattr(self, name, self.to_device(parallel.rows(t)))
 
     def get_image_paths(self):
         return self.image_paths
@@ -191,17 +221,21 @@ class BaseModel:
         return rows
 
     def query_pool(self, name, batch):
-        """The pooled batch of pool ``name``: the next rows of this step."""
+        """The pooled batch of pool ``name``: the next rows of this step.  In
+        a process group the pool is replicated: every rank applies the rows
+        to the gathered global batch and keeps its own rows of the result."""
         pool = self.pools[name]
         if pool is None:
             return batch
-        return pool_apply(pool, batch, self._next_rows(name, batch.shape[0]))
+        batch = parallel.gather_rows(batch.detach().to(pool['images'].dtype))
+        return parallel.rows(pool_apply(
+            pool, batch, self._next_rows(name, batch.shape[0])))
 
     def sample_pool(self, name):
         """--batchSize stored images of the sampled pool ``name``, at the
-        next rows of this step."""
-        return pool_take(self.pools[name],
-                         self._next_rows(name, self.opt.batchSize))
+        next rows of this step (this rank's rows of them in a group)."""
+        return parallel.rows(pool_take(
+            self.pools[name], self._next_rows(name, self.opt.batchSize)))
 
     # --------------------------------------------------------- training -- #
     def train_step(self):
@@ -229,7 +263,13 @@ class BaseModel:
         optimize_parameters() for each b in turn (the same draws, the same
         final state; metrics and taps are the last step's), with the
         batches staged on the device in one copy (JAX models/base.py:298
-        there)."""
+        there).  In a process group: set_input and optimize_parameters for
+        each batch, no graph (JAX models/base.py:304-310 there)."""
+        if parallel.active():
+            for b in batches:
+                self.set_input(b)
+                self.optimize_parameters()
+            return
         hosts = [self.host_inputs(b) for b in batches]
         self.train_chunk_stacked(
             {name: self.to_device(torch.stack([h[name] for h in hosts]))

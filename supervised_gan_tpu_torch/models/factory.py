@@ -1,6 +1,11 @@
 """Model recipe factory: the string dispatch of supervised_gan_tpu/models/
 factory.py (reference models/models.py:2-44, plus cgan_causal, which the
-JAX package registers)."""
+JAX package registers).  In a process group every rank's networks start as
+rank 0's (parallel/mesh.py broadcast_modules), as DDP's do."""
+
+import torch
+
+from .. import parallel
 
 
 def create_model(opt):
@@ -46,5 +51,7 @@ def create_model(opt):
     else:
         raise ValueError("Model [%s] not recognized." % opt.model)
     model.initialize(opt)
+    parallel.broadcast_modules([v for v in vars(model).values()
+                                if isinstance(v, torch.nn.Module)])
     print("model [%s] was created" % model.name())
     return model

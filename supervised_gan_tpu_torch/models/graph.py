@@ -21,6 +21,7 @@ host copy, ``.item()``, a branch on a device value): the capture raises.
 import ctypes
 
 import torch
+import torch.distributed
 
 CU_GRAPH_NODE_TYPE_KERNEL = 0
 
@@ -50,6 +51,10 @@ class StepGraph:
     ({STEP_INPUTS name: tensor}) and pool rows shaped as ``rows``."""
 
     def __init__(self, model, inputs, rows):
+        if torch.distributed.is_initialized():
+            # its collectives would be captured too: not supported yet
+            raise RuntimeError('a train step is not captured inside a process '
+                               'group: data-parallel chunks run eagerly')
         self.inputs = {name: torch.empty_like(t) for name, t in inputs.items()}
         self.rows = None if rows is None else torch.empty_like(rows)
         self._bind(model)

@@ -151,7 +151,7 @@ class TwoStageModel(TwoGroupModel):
                 raise ValueError('--use_fixed_noise1 needs a '
                                  '--noise_pool_size above 0')
             pools['noise1'] = pool_fill(
-                npool, self.noise((o.noise_pool_size,) + shape))
+                npool, self.noise((o.noise_pool_size,) + shape, rows=False))
             self.sampled_pools = ('noise1',)
         return pools
 

@@ -31,7 +31,9 @@ cotangent, rounding noise) and Adam moves it.
 
 Dropout draws its masks, and GaussianNoise its injected noise, from a
 ``torch.Generator`` that the model assigns (``set_noise_generator``), the
-port's counterpart of the JAX ``Ctx`` key.
+port's counterpart of the JAX ``Ctx`` key.  In a data-parallel run each draw
+is made at the global batch's shape and cut to the rank's rows
+(parallel/mesh.py), so the ranks' masks and noise are the one-process run's.
 """
 
 import math
@@ -40,6 +42,7 @@ import os
 import torch
 from torch import nn
 
+from .. import parallel
 from ..ops import (batch_norm, bilinear_upsample, conv2d, conv3x3_in_act,
                    conv3x3_in_supported, conv_transpose2d, instance_norm_act,
                    reflection_pad)
@@ -149,8 +152,10 @@ class Dropout(nn.Module):
             raise RuntimeError('Dropout needs a generator: call '
                                'set_noise_generator on its network')
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        # drawn at the global batch's shape, this rank's rows kept
+        mask = parallel.rows(torch.rand(
+            parallel.global_shape(x.shape), generator=self.generator,
+            device=x.device)) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -169,8 +174,9 @@ class GaussianNoise(nn.Module):
         if self.generator is None:
             raise RuntimeError('GaussianNoise needs a generator: call '
                                'set_noise_generator on its network')
-        return torch.randn(shape, generator=self.generator, dtype=dtype,
-                           device=device)
+        return parallel.rows(torch.randn(
+            parallel.global_shape(shape), generator=self.generator,
+            dtype=dtype, device=device))
 
     def forward(self, y):
         return y + self.sigma * self.draw(y.shape, y.dtype, y.device)

@@ -22,6 +22,8 @@ Every loss is computed in float32 whatever the prediction's dtype.
 
 import torch
 
+from .. import parallel
+
 
 def _safe_log(x):
     return torch.log(x.clamp_min(0.0)).clamp_min(-100.0)
@@ -80,7 +82,9 @@ def cross_entropy_2d(logits, labels, weights=None):
     w = torch.full_like(picked, float(weights[-1]))
     for i in reversed(range(len(weights) - 1)):
         w = torch.where(labels == i, float(weights[i]), w)
-    return -(picked * w).sum() / w.sum()
+    # in a process group, over the ranks' mean weight sum: the mean of the
+    # ranks' losses (and gradients) is then the global batch's ratio
+    return -(picked * w).sum() / parallel.mean_all_reduce(w.sum())
 
 
 def seg_bce_loss(p, target, weights=None):

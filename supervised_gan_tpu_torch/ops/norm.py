@@ -9,12 +9,15 @@ activation as its own op, as the JAX package's --no_pallas runs its XLA
 norm and activation apart.
 BatchNorm always normalizes with batch statistics, because the reference
 never calls ``.eval()``; it is plain torch, as the JAX package has no kernel
-for it.  Statistics are float32; outputs keep x's dtype.
+for it.  Statistics are float32; outputs keep x's dtype.  In a data-parallel
+run they are the global batch's: each rank's mean and E[x^2] averaged over
+the ranks (parallel/mesh.py), differentiably, as GSPMD's psum in JAX.
 """
 
 import torch
 import torch.nn.functional as F
 
+from .. import parallel
 from .kernels import InstanceNormAct, kernels_enabled
 
 
@@ -36,6 +39,8 @@ def batch_norm(x, weight, bias, eps=1e-5):
     xf = x.float()
     mean = xf.mean(dim=(0, 2, 3), keepdim=True)
     msq = (xf * xf).mean(dim=(0, 2, 3), keepdim=True)
+    if parallel.active():
+        mean, msq = parallel.mean_all_reduce(torch.cat([mean, msq])).chunk(2)
     var = (msq - mean * mean).clamp_min(0.0)
     y = (xf - mean) * torch.rsqrt(var + eps)
     y = y * weight.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)

@@ -5,6 +5,9 @@ surface (names, defaults, list-valued flags) so the README command lines
 parse unchanged.  ``--gpu_ids`` selects the device: ``cuda:<first id>``, or
 the CPU for ``-1``.  Flags whose feature is not yet ported raise
 NotImplementedError, naming themselves, when given a non-default value.
+--data_mesh and the --dcn_* flags are data parallelism (parallel/mesh.py):
+the training entry points launch their workers from them (and check them
+against --batchSize there); the samplers run one unsharded process.
 """
 
 import argparse
@@ -12,11 +15,7 @@ import os
 
 # flag -> its default; another value asks for a feature not yet ported
 NOT_YET_PORTED = {
-    'data_mesh': 0,
     'spatial_mesh': 0,
-    'dcn_coordinator': '',
-    'dcn_num_processes': 0,
-    'dcn_process_id': 0,
 }
 
 
@@ -142,7 +141,7 @@ class BaseOptions:
         p.add_argument('--compute_dtype', type=str, default='float32',
                        help='dtype for conv compute: float32 | bfloat16 (params stay float32)')
         p.add_argument('--data_mesh', type=int, default=0,
-                       help='if >0, shard the batch over this many devices (0 = all local devices when batchSize divides, else 1)')
+                       help='if >1, train data-parallel: this many worker processes, one a device, each on an equal share of the batch (0 or 1 = one process)')
         p.add_argument('--spatial_mesh', type=int, default=0,
                        help='if >1, spatially partition the image height over this many devices (batch-1 latency scaling; composes with --data_mesh into a 2-D mesh)')
         p.add_argument('--no_pallas', action='store_true',
@@ -154,7 +153,7 @@ class BaseOptions:
                             '(bit-identical augmentation; for recipe-scale datasets — '
                             'capped at 2 GiB, streams past the cap)')
         p.add_argument('--dcn_coordinator', type=str, default='',
-                       help='multi-host: coordinator address host:port for jax.distributed')
+                       help='multi-host: coordinator address host:port of the process group')
         p.add_argument('--dcn_num_processes', type=int, default=0,
                        help='multi-host: total number of processes (0 = single-process)')
         p.add_argument('--dcn_process_id', type=int, default=0,
@@ -172,6 +171,10 @@ class BaseOptions:
             if getattr(self.opt, flag, default) != default:
                 raise NotImplementedError(
                     '--%s is not yet ported to the PyTorch package' % flag)
+        for flag in ('data_mesh', 'dcn_num_processes', 'dcn_process_id'):
+            if getattr(self.opt, flag) < 0:
+                raise ValueError('--%s must be 0 or more, got %d'
+                                 % (flag, getattr(self.opt, flag)))
         if self.opt.compute_dtype not in ('float32', 'bfloat16'):
             raise ValueError('--compute_dtype must be float32 or bfloat16, '
                              'got %r' % self.opt.compute_dtype)

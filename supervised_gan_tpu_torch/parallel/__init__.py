@@ -1,0 +1,9 @@
+from .mesh import (active, average_gradients, barrier, broadcast_modules,
+                   check_flags, gather_rows, global_shape, init_distributed,
+                   is_main, launch, mean_all_reduce, mean_values, rank, rows,
+                   sharded, shutdown, unsharded, world)
+
+__all__ = ["active", "average_gradients", "barrier", "broadcast_modules",
+           "check_flags", "gather_rows", "global_shape", "init_distributed",
+           "is_main", "launch", "mean_all_reduce", "mean_values", "rank",
+           "rows", "sharded", "shutdown", "unsharded", "world"]

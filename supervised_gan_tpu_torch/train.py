@@ -26,6 +26,15 @@ total_steps == 10 x batchSize to 20 x batchSize (train.py:47-49, 72-76
 there) with torch.profiler and writes ``<profile_dir>/*.pt.trace.json``; a
 trace in which a kernel launch lost its device record fails the run and is
 not written (utils/profile.py).
+
+--data_mesh N (> 1) trains data-parallel (parallel/mesh.py): this process
+spawns N workers (N / P with --dcn_num_processes P, the rest on the other
+hosts), worker i on ``cuda:i`` (with --gpu_ids -1 on the CPU), each on its
+share of every global batch of --batchSize; the run computes the
+one-process run's steps.  Rank 0 alone writes the checkpoints, the full
+state, loss_log.txt and the web page (the others wait at a barrier after
+each save); the printed losses are the ranks' mean; only rank 0 profiles.
+A machine with fewer cards than workers raises.
 """
 
 import random
@@ -34,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from . import parallel
 from .data import CreateDataLoader
 from .models import create_model
 from .models.base import disable_tf32
@@ -48,11 +58,22 @@ def main(args=None):
     or train_chunk() under --steps_per_dispatch) up to a device
     synchronization (the first includes the kernels' build), the steps of
     each dispatch, and for --profile_dir {'path', 'launches', 'kernels',
-    'primer_lost'} of the trace written (else None)."""
-    disable_tf32()
+    'primer_lost'} of the trace written (else None); under --data_mesh the
+    first local worker's."""
     opt = TrainOptions().parse(args)
     if opt.manualSeed is None:
         opt.manualSeed = random.randint(1, 10000)
+    parallel.check_flags(opt)
+    if parallel.sharded(opt):
+        return parallel.launch(run, opt)
+    return run(opt)
+
+
+def run(opt):
+    """The training loop on this process's device (a data-parallel
+    worker's, in its process group)."""
+    disable_tf32()
+    main_rank = parallel.is_main()
     print('Random Seed: ', opt.manualSeed)
     random.seed(opt.manualSeed)
     np.random.seed(opt.manualSeed)
@@ -63,7 +84,7 @@ def main(args=None):
     print('#training images = %d' % dataset_size)
 
     model = create_model(opt)
-    visualizer = Visualizer(opt)
+    visualizer = Visualizer(opt) if main_rank else None
     cuda = model.device.type == 'cuda'
     spd = max(1, opt.steps_per_dispatch)
     total_steps = 0
@@ -91,7 +112,8 @@ def main(args=None):
             iter_start_time = time.time()
             total_steps += opt.batchSize
             epoch_iter = total_steps - dataset_size * (epoch - 1)
-            if opt.profile_dir and total_steps == 10 * opt.batchSize:
+            if (opt.profile_dir and main_rank
+                    and total_steps == 10 * opt.batchSize):
                 trace = Trace(model.device).start()
             if not pending:
                 dispatch_start = iter_start_time
@@ -117,17 +139,19 @@ def main(args=None):
                 trace = None
                 print('profiler trace written to %s' % opt.profile_dir)
 
-            if total_steps % opt.display_freq == 0:
+            if total_steps % opt.display_freq == 0 and main_rank:
                 visualizer.display_current_results(
                     model.get_current_visuals(), epoch)
 
             if total_steps % opt.print_freq == 0:
-                errors = model.get_current_errors()
+                errors = parallel.mean_values(model.get_current_errors())
                 t = (time.time() - iter_start_time) / opt.batchSize
-                visualizer.print_current_errors(epoch, epoch_iter, errors, t)
-                if opt.display_id > 0:
-                    visualizer.plot_current_errors(
-                        epoch, float(epoch_iter) / dataset_size, errors)
+                if main_rank:
+                    visualizer.print_current_errors(epoch, epoch_iter, errors,
+                                                    t)
+                    if opt.display_id > 0:
+                        visualizer.plot_current_errors(
+                            epoch, float(epoch_iter) / dataset_size, errors)
                 if opt.abort_on_nan and not all(
                         np.isfinite(v) for v in errors.values()):
                     # opt-in (reference semantics: train through NaN); the
@@ -139,7 +163,7 @@ def main(args=None):
             if total_steps % opt.save_latest_freq == 0:
                 print('saving the latest model (epoch %d, total_steps %d)'
                       % (epoch, total_steps))
-                model.save('latest')
+                save(model, 'latest')
 
         if pending:
             dispatch(pending, time.time())
@@ -147,8 +171,8 @@ def main(args=None):
         if epoch % opt.save_epoch_freq == 0:
             print('saving the model at the end of epoch %d, iters %d'
                   % (epoch, total_steps))
-            model.save('latest')
-            model.save(epoch)
+            save(model, 'latest')
+            save(model, epoch)
 
         print('End of epoch %d / %d \t Time Taken: %d sec'
               % (epoch, opt.niter + opt.niter_decay,
@@ -162,6 +186,13 @@ def main(args=None):
               'step %d' % (total_steps, 20 * opt.batchSize))
     return {'steps': total_steps // opt.batchSize,
             'step_seconds': step_seconds, 'chunks': chunks, 'trace': written}
+
+
+def save(model, label):
+    """model.save(label) on rank 0; every rank waits until it is written."""
+    if parallel.is_main():
+        model.save(label)
+    parallel.barrier()
 
 
 if __name__ == '__main__':

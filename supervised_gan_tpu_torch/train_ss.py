@@ -14,6 +14,13 @@ the train accuracies (display 10) and the val accuracies (display 20).  It
 runs on ``cuda:<first --gpu_ids>``; with no CUDA device it raises unless
 --gpu_ids -1 asks for the CPU.  TF32 is off (models/base.py
 `disable_tf32`).
+
+--data_mesh N (> 1) trains data-parallel as the train entry point does
+(parallel/mesh.py): N workers, each on its share of every batch, rank 0
+alone writing checkpoints and logs.  Validation runs unsharded on every
+rank (``parallel.unsharded``), each on the whole val set, so every rank
+keeps its generators in step and picks the same ``best``; the printed
+losses and train accuracies are the ranks' mean.
 """
 
 import ntpath
@@ -25,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from . import parallel
 from .data import CreateDataLoader
 from .models import create_model
 from .models.base import disable_tf32
@@ -37,13 +45,24 @@ def main(args=None):
     """Train; returns {'steps', 'step_seconds', 'val_accs', 'best'}: the
     iterations run, the wall time of each up to a device synchronization
     (the first includes the kernels' build), each epoch's val accuracies
-    and the best --best_metric value (None without one)."""
-    disable_tf32()
+    and the best --best_metric value (None without one); under --data_mesh
+    the first local worker's."""
     opt_train = TrainOptions().parse(args)
     opt_val = TrainOptions().parse(args)
 
     if opt_train.manualSeed is None:
         opt_train.manualSeed = random.randint(1, 10000)
+    parallel.check_flags(opt_train)
+    if parallel.sharded(opt_train):
+        return parallel.launch(run, opt_train, (opt_val,))
+    return run(opt_train, opt_val)
+
+
+def run(opt_train, opt_val):
+    """Training and validation on this process's device (a data-parallel
+    worker's, in its process group)."""
+    disable_tf32()
+    main_rank = parallel.is_main()
     print('Random Seed: ', opt_train.manualSeed)
     random.seed(opt_train.manualSeed)
     np.random.seed(opt_train.manualSeed)
@@ -70,14 +89,14 @@ def main(args=None):
 
     model = create_model(opt_train)
     cuda = model.device.type == 'cuda'
-    visualizer = Visualizer(opt_train)
+    visualizer = Visualizer(opt_train) if main_rank else None
     opt_train.display_id = 10
     opt_train.display_title = 'train accuracy'
-    visualizer_acc = Visualizer(opt_train)
+    visualizer_acc = Visualizer(opt_train) if main_rank else None
     opt_val.display_id = 20
     opt_val.display_title = 'val accuracy'
     opt_val.isTrain = True           # the Visualizer writes the train dirs
-    visualizer_acc_val = Visualizer(opt_val)
+    visualizer_acc_val = Visualizer(opt_val) if main_rank else None
 
     total_steps = 0
     best_metric = -1
@@ -98,37 +117,40 @@ def main(args=None):
                 torch.cuda.synchronize(model.device)
             step_seconds.append(time.time() - iter_start_time)
 
-            if total_steps % opt_train.display_freq == 0:
+            if total_steps % opt_train.display_freq == 0 and main_rank:
                 visualizer.display_current_results(
                     model.get_current_visuals(), epoch)
 
             if total_steps % opt_train.print_freq == 0:
-                errors = model.get_current_errors()
+                errors = parallel.mean_values(model.get_current_errors())
+                accs = parallel.mean_values(model.get_current_accs())
                 t = (time.time() - iter_start_time) / opt_train.batchSize
-                visualizer.print_current_errors(epoch, epoch_iter, errors, t)
-                if opt_train.display_id > 0:
-                    visualizer.plot_current_errors(
-                        epoch, float(epoch_iter) / dataset_size, errors)
-                accs = model.get_current_accs()
-                if accs:
-                    visualizer_acc.plot_current_errors(
-                        epoch, float(epoch_iter) / dataset_size, accs)
+                if main_rank:
+                    visualizer.print_current_errors(epoch, epoch_iter, errors,
+                                                    t)
+                    if opt_train.display_id > 0:
+                        visualizer.plot_current_errors(
+                            epoch, float(epoch_iter) / dataset_size, errors)
+                    if accs:
+                        visualizer_acc.plot_current_errors(
+                            epoch, float(epoch_iter) / dataset_size, accs)
 
             if total_steps % opt_train.save_latest_freq == 0:
                 print('saving the latest model (epoch %d, total_steps %d)'
                       % (epoch, total_steps))
-                model.save('latest')
+                save(model, 'latest')
 
         # ------------------------------------- validation, every epoch -- #
         model.reset_accs()
-        if opt_val.save_val_visuals:
+        if opt_val.save_val_visuals and main_rank:
             img_dir = os.path.join(chkpt_dir, 'val', 'epoch%03d' % epoch)
             mkdirs(img_dir)
         for data in dataset_val:
-            model.set_input(data)
-            model.forward(val_mode=True)
+            with parallel.unsharded():
+                model.set_input(data)
+                model.forward(val_mode=True)
             model.accum_accs()
-            if opt_val.save_val_visuals:
+            if opt_val.save_val_visuals and main_rank:
                 visuals = model.get_current_visuals()
                 name = os.path.splitext(
                     ntpath.basename(model.get_image_paths()[0]))[0]
@@ -140,20 +162,21 @@ def main(args=None):
 
         accs = model.get_current_accs()
         val_accs.append({k: float(v) for k, v in accs.items()})
-        print('validation (epoch %d): %s' % (epoch, ', '.join(
-            '%s %.6f' % kv for kv in val_accs[-1].items())))
+        if main_rank:
+            print('validation (epoch %d): %s' % (epoch, ', '.join(
+                '%s %.6f' % kv for kv in val_accs[-1].items())))
         if opt_val.best_metric != 'None' and accs:
             if accs[opt_val.best_metric] > best_metric:
                 best_metric = accs[opt_val.best_metric]
-                model.save('best')
-        if accs:
+                save(model, 'best')
+        if accs and main_rank:
             visualizer_acc_val.plot_current_errors(epoch, 0.0, accs)
 
         if epoch % opt_train.save_epoch_freq == 0:
             print('saving the model at the end of epoch %d, iters %d'
                   % (epoch, total_steps))
-            model.save('latest')
-            model.save(epoch)
+            save(model, 'latest')
+            save(model, epoch)
 
         print('End of epoch %d / %d \t Time Taken: %d sec'
               % (epoch, opt_train.niter + opt_train.niter_decay,
@@ -165,6 +188,13 @@ def main(args=None):
             'step_seconds': step_seconds, 'val_accs': val_accs,
             'best': (float(best_metric)
                      if opt_val.best_metric != 'None' else None)}
+
+
+def save(model, label):
+    """model.save(label) on rank 0; every rank waits until it is written."""
+    if parallel.is_main():
+        model.save(label)
+    parallel.barrier()
 
 
 if __name__ == '__main__':

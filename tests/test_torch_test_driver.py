@@ -2,7 +2,9 @@
 on the CPU at a small DSGAN config with checkpoints written by the JAX
 package's save_pth (G1, G2 and the F2 that the sampler loads but does not
 run): the results layout of the JAX test.py, determinism
-under one seed, and the refusals (no silent CPU fallback, unported flags).
+under one seed, and the refusals (no silent CPU fallback, unported flags,
+the data-parallel flags' misuses); the sampler runs unsharded under the
+data-parallel flags.
 --no_pallas is held in tests/test_torch_no_pallas.py."""
 
 import os
@@ -99,16 +101,78 @@ def test_gpu_asked_without_cuda_raises(ckpt_dir, tmp_path, monkeypatch):
         ttest.main(['--how_many', '1'] + _args(ckpt_dir, str(tmp_path)))
 
 
-@pytest.mark.parametrize("flag,value", [
-    ('--data_mesh', '2'), ('--spatial_mesh', '2'),
-    ('--dcn_coordinator', 'localhost:1234'), ('--dcn_num_processes', '2'),
-    ('--dcn_process_id', '1')])
+@pytest.mark.parametrize("flag,value", [('--spatial_mesh', '2')])
 def test_unported_flag_raises(tmp_path, flag, value):
     assert flag[2:] in base_options.NOT_YET_PORTED
     extra = [flag, value]
     with pytest.raises(NotImplementedError, match=flag):
         ttest.main(['--gpu_ids', '-1']
                    + _args(str(tmp_path), str(tmp_path)) + extra)
+
+
+def _images(r):
+    img = os.path.join(r['web_dir'], 'images')
+    return {f: open(os.path.join(img, f), 'rb').read()
+            for f in os.listdir(img)}
+
+
+@pytest.mark.parametrize("flag,value", [
+    ('--data_mesh', '2'), ('--dcn_coordinator', 'localhost:1234'),
+    ('--dcn_num_processes', '2'), ('--dcn_process_id', '1')])
+def test_parallel_flag_parses_and_sampler_runs_unsharded(ckpt_dir, tmp_path,
+                                                         flag, value):
+    """The data-parallel flags parse; the sampler runs one unsharded process
+    under each (no process group) and writes the images it writes without
+    it."""
+    assert flag[2:] not in base_options.NOT_YET_PORTED
+    outs = [ttest.main(['--gpu_ids', '-1', '--how_many', '1']
+                       + _args(ckpt_dir, str(tmp_path / str(i)), *extra))
+            for i, extra in enumerate([[], [flag, value]])]
+    assert not torch.distributed.is_initialized()
+    assert outs[1]['samples'] == 1
+    assert _images(outs[1]) == _images(outs[0])
+
+
+TRAIN_ARGS = ['--model', 'fcgan', '--name', 'misuse', '--gpu_ids', '-1']
+
+
+@pytest.mark.parametrize("entry,extra,error,match", [
+    ('train', ['--batchSize', '3', '--data_mesh', '2'], ValueError,
+     'batchSize 3 is not divisible by --data_mesh 2'),
+    ('train', ['--batchSize', '6', '--data_mesh', '3',
+               '--dcn_num_processes', '2', '--dcn_coordinator',
+               'localhost:1234'], ValueError,
+     'data_mesh 3 must be a multiple of --dcn_num_processes 2'),
+    ('cards', ['--batchSize', '2', '--data_mesh', '2'], RuntimeError,
+     'has 1 cards: fewer cards than workers'),
+    ('bench', ['--data_mesh', '2'], NotImplementedError, '--data_mesh')])
+def test_parallel_misuse_raises(tmp_path, monkeypatch, entry, extra, error,
+                                match):
+    """A run it cannot make raises before any worker starts: a batch that
+    does not split, a process count that does not divide the workers, more
+    workers than cards (never two on one, never the CPU instead), and the
+    one-card bench."""
+    from supervised_gan_tpu_torch import bench as tbench
+    from supervised_gan_tpu_torch import train as ttrain
+    def no_spawn(*a, **k):
+        raise AssertionError('a worker was started')
+
+    monkeypatch.setattr(torch.multiprocessing, 'start_processes', no_spawn)
+    args = ['--dataroot', str(tmp_path), '--checkpoints_dir', str(tmp_path)]
+    if entry == 'cards':
+        # a one-card machine; the two workers would ask for cuda:0 and cuda:1
+        monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
+        args += ['--model', 'fcgan', '--name', 'misuse']
+    elif entry == 'train':
+        args += TRAIN_ARGS
+    if entry == 'bench':
+        with pytest.raises(error, match=match):
+            tbench.main(['--gpu_ids', '-1', '--checkpoints_dir',
+                         str(tmp_path)] + extra)
+        return
+    with pytest.raises(error, match=match):
+        ttrain.main(args + extra)
+    assert not torch.distributed.is_initialized()
 
 
 def test_sampler_refuses_a_mismatched_f2(ckpt_dir, tmp_path):
