@@ -9,8 +9,8 @@ the cgan family (cgan_cycle, cgan2, cgan2_cycle, cgan_causal),
 segmentation_cycle, --model test (resnet_9blocks), the rest of the
 network zoo (fcgan_star, the autoencoder, n_layers_sep, the dcgan G and D)
 on the recipes that select them, the native PNG decoder and the loader,
-the quality gate (quality_eval), data parallelism (--data_mesh), and the
-bench entry points on one CUDA card, on the hand-written kernels and under
+the quality gate (quality_eval), data parallelism (--data_mesh), spatial
+parallelism (--spatial_mesh), and the bench entry points on one CUDA card, on the hand-written kernels and under
 --no_pallas, and hold every hand-written kernel against its plain PyTorch
 version.
 
@@ -135,7 +135,8 @@ comparison is float32 against float32.
      with --profile_dir, 20 f32 steps, its trace of steps 10-20 written
      with every launch's device record (phase_profile_dir); then the bench
      entry point (supervised_gan_tpu_torch.bench.main) in turns: kernels
-     bf16, --no_pallas bf16, --no_pallas f32, kernels f32, each 3 windows
+     bf16, --no_pallas bf16, --no_pallas f32, kernels f32, each BENCH_WINDOWS
+     windows
      of BENCH_WINDOW_STEPS steps per step and chunked (one chunk of
      BENCH_CHUNK) and a BENCH_TRACE_STEPS-step trace (one chunk traced), its
      record printed, finite, its device fields set, its wrappers' launches
@@ -166,8 +167,9 @@ comparison is float32 against float32.
      bfloat16 changed: --sequential_train loads those files (checked); 8
      steps with the region's gate on and 8 with it off, exact launch
      counts, median step time of each;
- 14. phase 10 again with the region's gate on, then in bf16 on both sides
-     with the gate on (see phase_reference_step for its tolerances);
+ 14. phase 10 in bf16 on both sides with the region's gate on (see
+     phase_reference_step for its tolerances; the gated f32 step, which
+     the bf16 one covers, was cut to make room for phase 22);
  15. SGAN step 2 and the segmentation gate: a synthetic set of 512^2 PNGs
      (train 4, val 2, test 4; discs in R, their complement in G, an image
      of them in B); the kernel sites of one f32 cgan step (CGAN_FLAGS,
@@ -282,8 +284,23 @@ comparison is float32 against float32.
      ms a step beside the one process's, on the card line; an NCCL group of
      one: one step with the gradient hook and the BatchNorm all-reduce on,
      bitwise equal to the step without a group (deterministic algorithms);
- 22. a JSON line of per-kernel results (launches: the DSGAN train step's),
-     the card line, and the last line {"ok": true, "device": {...}}.
+ 22. spatial parallelism (supervised_gan_tpu_torch/parallel/spatial.py):
+     the row-split IN entries (instance_norm_partial_stats,
+     instance_norm_bwd_partial_stats, instance_norm_bwd_apply) against
+     their plain versions at a rank's half of a 512^2 plane, 64 channels,
+     f32 and bf16, two runs bitwise identical; train --spatial_mesh 2 on
+     this one-card machine raises the fewer-cards error; two gloo ranks
+     sharing cuda:0 split the height of the bench DSGAN configuration (f32,
+     batch 1), SP_STEPS steps, against SP_RUNS one-process runs: each
+     rank's launches sp_per_step's (rehearsed on the CPU: every conv site
+     on its kernel, every IN plane of 16 rows or more on the row-split
+     entries), the ranks' states bitwise equal, the losses and every
+     parameter, Adam moment and pool (gathered whole) within dm_limits of
+     SP_SPREAD_FLOOR; each rank's ms a step and its halo exchanges',
+     all-reduces' and all-gathers' ms, on the card line;
+ 23. a JSON line of per-kernel results (launches: the DSGAN train step's;
+     the row-split IN entries': phase 22's sharded step's), the card line,
+     and the last line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
 the profiler loses at its start (see traced), and must hold a device
@@ -607,6 +624,15 @@ KERNEL_INFO = {
     'instance_norm_apply': dict(
         source='supervised_gan_tpu_torch/csrc/instance_norm.cu',
         replaces='supervised_gan_tpu/ops/pallas/instance_norm.py:312'),
+    'instance_norm_partial_stats': dict(
+        source='supervised_gan_tpu_torch/csrc/instance_norm.cu',
+        replaces='supervised_gan_tpu/ops/pallas/instance_norm.py:297'),
+    'instance_norm_bwd_partial_stats': dict(
+        source='supervised_gan_tpu_torch/csrc/instance_norm.cu',
+        replaces='supervised_gan_tpu/ops/pallas/instance_norm.py:319'),
+    'instance_norm_bwd_apply': dict(
+        source='supervised_gan_tpu_torch/csrc/instance_norm.cu',
+        replaces='supervised_gan_tpu/ops/pallas/instance_norm.py:337'),
 }
 
 
@@ -778,6 +804,10 @@ def _in_library(slope):
     return lib
 
 
+def _ms(t):
+    return 'none' if t is None else '%.4f' % t
+
+
 def run_cases(cases):
     """Each case: kernel vs plain in f32 and bf16, then device times.
     Returns (per-site records, per-kernel sums weighted by each site's
@@ -803,10 +833,13 @@ def run_cases(cases):
         t_k = device_ms(lambda: c.kern(*args))
         t_k16 = device_ms(lambda: c.kern(*args16))
         t_p = device_ms(lambda: c.plain(*args))
-        t_l = device_ms(lambda: c.lib(*args))
         # the bf16 yardstick: the same library call on the bf16 inputs
-        # (cuDNN on the tensor cores; aten's instance norm and its backward)
-        t_l16 = device_ms(lambda: c.lib(*args16))
+        # (cuDNN on the tensor cores; aten's instance norm and its backward);
+        # None where no one library call computes the function
+        t_l = t_l16 = None
+        if c.lib is not None:
+            t_l = device_ms(lambda: c.lib(*args))
+            t_l16 = device_ms(lambda: c.lib(*args16))
         t_call = call_ms(lambda: c.kern(*args))
         peak = PEAK_TF32X3_FLOPS if c.kernel in CONV_KERNELS \
             else PEAK_F32_FLOPS
@@ -821,30 +854,33 @@ def run_cases(cases):
             bound_ms_bf16=b16_ms, bound_by_bf16=b16_by, flops=c.flops,
             bytes=c.nbytes))
         print('  %-17s %-26s x%-3d err f32 %.2e bf16 %.2e | kernel %.4f ms '
-              '(bf16 %.4f, eager call %.4f) plain %.4f library %.4f (bf16 '
-              '%.4f) bound %.4f (%s; bf16 %.4f)' % (
+              '(bf16 %.4f, eager call %.4f) plain %.4f library %s (bf16 '
+              '%s) bound %.4f (%s; bf16 %.4f)' % (
                   c.kernel, c.label, c.count, e32, e16, t_k, t_k16, t_call,
-                  t_p, t_l, t_l16, b_ms, b_by, b16_ms))
+                  t_p, _ms(t_l), _ms(t_l16), b_ms, b_by, b16_ms))
         a = agg.setdefault(c.kernel, dict(
             max_abs_err=0.0, ms=0.0, ms_bf16=0.0, plain_ms=0.0,
             library_ms=0.0, library_ms_bf16=0.0, bound_ms=0.0,
             bound_ms_cuda_core=0.0, bound_ms_bf16=0.0, flops=0.0, bytes=0.0,
             bytes16=0.0, sites=0, peak_flops=peak))
         a['max_abs_err'] = max(a['max_abs_err'], e32)
+        if t_l is None:
+            a['library_ms'] = a['library_ms_bf16'] = None
         for k, v in (('ms', t_k), ('ms_bf16', t_k16), ('plain_ms', t_p),
                      ('library_ms', t_l), ('library_ms_bf16', t_l16),
                      ('bound_ms', b_ms), ('bound_ms_cuda_core', b_cc),
                      ('bound_ms_bf16', b16_ms), ('flops', c.flops),
                      ('bytes', c.nbytes), ('bytes16', c.nbytes16)):
-            a[k] += v * c.count
+            if a[k] is not None and v is not None:
+                a[k] += v * c.count
         a['sites'] += c.count
     for name, a in agg.items():
         _, a['bound_by'] = bound_ms(a['flops'], a['bytes'], a['peak_flops'])
         print('  %-17s over %d launches: kernel f32 %.4f ms, bf16 %.4f; '
-              'library f32 %.4f, bf16 %.4f; bound f32 %.4f (%s), bf16 %.4f; '
+              'library f32 %s, bf16 %s; bound f32 %.4f (%s), bf16 %.4f; '
               'f32 CUDA-core bound %.4f' % (
-                  name, a['sites'], a['ms'], a['ms_bf16'], a['library_ms'],
-                  a['library_ms_bf16'],
+                  name, a['sites'], a['ms'], a['ms_bf16'],
+                  _ms(a['library_ms']), _ms(a['library_ms_bf16']),
                   a['bound_ms'], a['bound_by'], a['bound_ms_bf16'],
                   a['bound_ms_cuda_core']))
     return per_site, agg
@@ -2436,13 +2472,14 @@ def _reference_step(noise_only, tag, dtype, loss_tol, grad_tol,
 # DSGAN_ARGS).  Its command line runs 3 windows of 30 steps in chunks of 10
 # and a 12-step trace; here the windows are BENCH_WINDOW_STEPS steps in
 # chunks of BENCH_CHUNK and the trace BENCH_TRACE_STEPS, which keeps this
-# script inside its time limit (17 bench runs over the paths; with 10-step
-# windows the script took over 1100 s of its 1200 on a slow host).
+# script inside its time limit (14 bench runs over the paths; with 10-step
+# windows the script took over 1100 s of its 1200 on a slow host, and two
+# windows a run, not three, make room for the spatial-mesh phase).
 BENCH_ARMS = (('kernels bf16', []),
               ('no_pallas bf16', ['--no_pallas']),
               ('no_pallas f32', ['--no_pallas', '--compute_dtype', 'float32']),
               ('kernels f32', ['--compute_dtype', 'float32']))
-BENCH_WINDOWS = 3
+BENCH_WINDOWS = 2
 BENCH_WINDOW_STEPS = 5
 BENCH_CHUNK = 5
 BENCH_TRACE_STEPS = 4
@@ -2493,7 +2530,7 @@ def _bench_arm(name, run, kernels, per_step):
 def phase_bench():
     """supervised_gan_tpu_torch.bench.main on each arm in turn, its record
     printed as a line.  Checked (_bench_arm): finite losses, value > 0,
-    three windows each way (per step and chunked), every device field set
+    BENCH_WINDOWS windows each way (per step and chunked), every device field set
     (bench.main fails when a launch lost its device record), the gates, the
     wrappers' launches a step: the train phase's on the kernels' route (0
     for the region's two), every one 0 under --no_pallas; and the chunked
@@ -3505,7 +3542,7 @@ TS_PER_STEP = {
 # well), and no dW (G is frozen)
 RECON_PER_EVAL = {'convt4s2': G1_CONVT}
 RECON_PER_GRAD_EVAL = {'convt4s2': G1_CONVT, 'conv4s2': G1_CONVT}
-TS_STEPS, TS_CHUNK = 3, 4
+TS_STEPS, TS_CHUNK = 2, 4
 RECON_IMAGES = 2
 
 
@@ -3739,7 +3776,7 @@ def phase_recon(stage1_name):
 LAST_NAME = 'chip_smoke_last'
 UNALIGNED_DATA = os.path.join(RESULTS_DIR, 'unaligned_data')
 FAKE_LABELS = 4
-LAST_STEPS = 3
+LAST_STEPS = 2
 FAMILY_ROOTS = collections.OrderedDict([
     ('cgan_cycle', ('single', DATA_DIR)),
     ('cgan2', ('unaligned', UNALIGNED_DATA)),
@@ -4832,6 +4869,357 @@ def phase_data_mesh_world_one():
     return dict(all_reduces=g['all_reduces'], tensors=len(g['state']),
                 hooks=g['hooks'])
 
+# ------------------------------------------------ spatial parallelism -- #
+# --spatial_mesh 2 (parallel/spatial.py): two gloo ranks on cuda:0 split the
+# height of the bench DSGAN configuration (512 px, batch 1, f32), held
+# against SP_RUNS one-process batch-1 runs of the same SP_STEPS steps.  The
+# limits follow dm_limits with SP_SPREAD_FLOOR: twice the largest
+# one-process pair, at least twice the floor, which is the
+# sharded-vs-one-process distance, rounded: over 11 runs on an H100 (this
+# phase's and 6 rounds of scripts/data_mesh_spread.py --spatial_mesh) the
+# whole state 2.40-2.51e-3, worst tensor 0.297-0.306, a loss up to 2.39e-4
+# of its value, against 2.2e-4-1.01e-3, 0.063-0.134 and 5.8e-5 between two
+# one-process runs (PERF.md): each rank's kernels run on half planes, with
+# their own plans and sums, so the split lands further from one process
+# than two one-process runs land apart, by a steady amount.  Planted faults
+# land past the limits (the script's --plants): halo gradients dropped,
+# whole 1.33e-2 and worst 0.668; IN statistics from a rank's own rows,
+# 0.110 and 1.32.
+# On the CPU the same split agrees with one process within 1e-9 in float64
+# (tests/test_torch_spatial_steps.py).
+SP_NAME = 'chip_smoke_sp'
+SP_STEPS = 2
+SP_RUNS = 2
+SP_JOIN_TIMEOUT = 300
+SP_SPREAD_FLOOR = {'whole': 2.5e-3, 'worst': 0.31, 'loss': 2.3e-4}
+# the row-split IN entries' sites: a 512^2 plane's half, 64 channels
+SP_IN_SHAPE = (1, 64, 256, 512)
+SP_IN_SLOPE = 0.2
+SP_IN_KERNELS = ('instance_norm_partial_stats',
+                 'instance_norm_bwd_partial_stats', 'instance_norm_bwd_apply')
+
+
+def sp_per_step(books):
+    """Each rank's wrapper launches a step at --spatial_mesh 2 (rehearsed on
+    the CPU at narrow widths): every conv site as the one-process step's
+    (LAUNCHES_PER_STEP); each IN site whose plane has 16 rows or more
+    (spatial.MIN_ROWS a rank) takes the row-split route, forward
+    partial_stats + apply, backward bwd_partial_stats + bwd_apply, the
+    others the one-launch kernels.  ``books``: the one-process step's
+    recorded IN sites."""
+    split_h = 2 * parallel.spatial.MIN_ROWS
+    f = sum(c for (xs, _), c in books['InstanceNormAct'].items()
+            if xs[2] >= split_h)
+    b = sum(c for (xs, _), c in books['instance_norm_bwd'].items()
+            if xs[2] >= split_h)
+    per = dict(LAUNCHES_PER_STEP)
+    per.update(instance_norm_act=per['instance_norm_act'] - f,
+               instance_norm_bwd=per['instance_norm_bwd'] - b,
+               instance_norm_partial_stats=f, instance_norm_apply=f,
+               instance_norm_bwd_partial_stats=b, instance_norm_bwd_apply=b)
+    return per
+
+
+def spatial_in_cases():
+    """The row-split IN entries at SP_IN_SHAPE (a rank's half of a 512^2
+    plane), against their plain versions; their statistics and sums stay
+    float32 in the bf16 runs.  No one PyTorch call computes any of them."""
+    n = 1
+    for d in SP_IN_SHAPE:
+        n *= d
+    count = float(SP_IN_SHAPE[2] * 2 * SP_IN_SHAPE[3])
+    nc = SP_IN_SHAPE[0] * SP_IN_SHAPE[1]
+
+    def stats(gen):
+        return (randn(SP_IN_SHAPE, gen, 2.0) + 0.5,
+                torch.rand((SP_IN_SHAPE[0], SP_IN_SHAPE[1]), generator=gen,
+                           device=DEV) + 0.5,
+                torch.rand((SP_IN_SHAPE[0], SP_IN_SHAPE[1]), generator=gen,
+                           device=DEV) * 0.5 + 0.5)
+
+    def mk_x(gen):
+        return (randn(SP_IN_SHAPE, gen, 2.0) + 0.5,)
+
+    def mk_bwd(gen):
+        x, mean, rstd = stats(gen)
+        return (x, randn(SP_IN_SHAPE, gen), mean, rstd)
+
+    def mk_apply(gen):
+        x, g, mean, rstd = mk_bwd(gen)
+        sums = K.instance_norm_bwd_partial_stats_plain(x, g, mean, rstd,
+                                                       SP_IN_SLOPE) * 2.0
+        return (x, g, mean, rstd, sums.contiguous())
+
+    def to16(args):
+        return tuple(a.to(torch.bfloat16) if i < 2 and a.dim() == 4 else a
+                     for i, a in enumerate(args))
+
+    return [
+        Case('instance_norm_partial_stats', 'half plane %s' % (SP_IN_SHAPE,),
+             1, K.instance_norm_partial_stats,
+             K.instance_norm_partial_stats_plain, None, 3.0 * n, 4.0 * n
+             + 8.0 * nc, 2.0 * n + 8.0 * nc, mk_x, within_sum, to16),
+        Case('instance_norm_bwd_partial_stats',
+             'half plane %s slope %s' % (SP_IN_SHAPE, SP_IN_SLOPE), 1,
+             lambda x, g, m, r: K.instance_norm_bwd_partial_stats(
+                 x, g, m, r, SP_IN_SLOPE),
+             lambda x, g, m, r: K.instance_norm_bwd_partial_stats_plain(
+                 x, g, m, r, SP_IN_SLOPE), None, 7.0 * n,
+             8.0 * n + 16.0 * nc, 4.0 * n + 16.0 * nc, mk_bwd, within_sum,
+             to16),
+        Case('instance_norm_bwd_apply',
+             'half plane %s slope %s' % (SP_IN_SHAPE, SP_IN_SLOPE), 1,
+             lambda x, g, m, r, s_: K.instance_norm_bwd_apply(
+                 x, g, m, r, s_, count, SP_IN_SLOPE),
+             lambda x, g, m, r, s_: K.instance_norm_bwd_apply_plain(
+                 x, g, m, r, s_, count, SP_IN_SLOPE), None, 8.0 * n,
+             12.0 * n + 16.0 * nc, 6.0 * n + 16.0 * nc, mk_apply, within,
+             to16)]
+
+
+def phase_spatial_in():
+    """The row-split IN entries vs their plain versions (run_cases: f32 and
+    bf16, device times), then each kernel twice on one input, f32 and
+    bf16: the two results bitwise equal."""
+    cases = spatial_in_cases()
+    per_site, agg = run_cases(cases)
+    gen = torch.Generator(device=DEV).manual_seed(77)
+    for c in cases:
+        args = c.mk(gen)
+        for a in (args, c.to16(args)):
+            y1, y2 = c.kern(*a), c.kern(*a)
+            torch.cuda.synchronize()
+            check(torch.equal(y1, y2), '%s: two runs differ' % c.kernel)
+    print('  %s: two runs of one launch bitwise equal, f32 and bf16'
+          % ', '.join(c.kernel for c in cases))
+    return per_site, agg
+
+
+def _sp_batches():
+    return [fixed_batch(seed=40 + s_) for s_ in range(SP_STEPS)]
+
+
+def _sp_model(label, extra=()):
+    return create_model(train_opt(
+        ['--compute_dtype', 'float32', '--name', '%s_%s' % (SP_NAME, label)]
+        + list(extra)))
+
+
+def _sp_steps(model, after_step=None):
+    """SP_STEPS steps on _sp_batches, each timed to a synchronize (then
+    ``after_step()``), launch counts set to 0 just before and read just
+    after; then the state on the host, the pools whole (every sp rank
+    gathers them)."""
+    K.reset_launch_counts()
+    ms = []
+    for b in _sp_batches():
+        t0 = time.perf_counter()
+        model.set_input(b)
+        model.optimize_parameters()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if after_step is not None:
+            after_step()
+    counts = K.launch_counts()
+    with parallel.spatial.whole_pools(model.pools):
+        state, losses = _model_state(model)
+    return dict(ms=ms, counts=counts, losses=parallel.mean_values(losses),
+                state={k: v.cpu() for k, v in state.items()})
+
+
+def _timed_calls(spans, key, fn):
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_ = fn(*a, **kw)
+        torch.cuda.synchronize()
+        spans[key].append(1e3 * (time.perf_counter() - t0))
+        return out_
+    return timed
+
+
+def _plant_local_in_stats():
+    """A planted fault: each rank's IN planes normalized by the statistics
+    of its own rows (the all-reduce of the partial sums taken as twice the
+    rank's own: its half of a 512-row plane)."""
+    parallel.spatial.sp_sum_ = lambda t: t.mul_(2)
+
+
+def _plant_no_halo_grad():
+    """A planted fault: each halo's gradient dropped instead of sent back
+    to the rank that owns its rows."""
+    sp = parallel.spatial
+
+    def backward(ctx, g):
+        own, win = ctx.own[sp.index()], ctx.ranges[sp.index()]
+        with sp.quiet():
+            dx = g.new_zeros(ctx.shape)
+            o = sp._overlap(*own, *win)
+            if o:
+                dx.narrow(-2, o[0] - own[0], o[1] - o[0]).copy_(
+                    g.narrow(-2, o[0] - win[0], o[1] - o[0]))
+        return dx, None, None
+    sp._Fetch.backward = staticmethod(backward)
+
+
+# faults a sharded run can be given (sp_sharded_run's ``plant``), to show
+# how far beyond the check's limits such a fault lands
+# (scripts/data_mesh_spread.py --spatial_mesh --plants)
+SP_PLANTS = {'local_in_stats': _plant_local_in_stats,
+             'no_halo_grad': _plant_no_halo_grad}
+
+
+def _sp_rank(rank, port, out, plant=None):
+    """One of two gloo sp ranks sharing cuda:0 (spawned): the sharded steps,
+    written to ``out``/sp_rank<rank>.pt, with the wall ms of each halo
+    exchange, all-reduce and all-gather, each timed from an idle device;
+    ``plant``: the name of an SP_PLANTS fault to run them with."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sp, mesh = parallel.spatial, parallel.mesh
+    spans = collections.defaultdict(list)
+    saved = (sp._exchange, mesh.all_reduce_sum_in_,
+             torch.distributed.all_gather)
+    sp._exchange = _timed_calls(spans, 'halo', saved[0])
+    mesh.all_reduce_sum_in_ = _timed_calls(spans, 'all_reduce', saved[1])
+    torch.distributed.all_gather = _timed_calls(spans, 'all_gather',
+                                                saved[2])
+    parallel.init_distributed('127.0.0.1:%d' % port, 2, rank,
+                              backend='gloo', device=DEV,
+                              timeout_s=SP_JOIN_TIMEOUT, n_sp=2)
+    if plant is not None:
+        SP_PLANTS[plant]()
+    try:
+        model = _sp_model('rank%d' % rank, ['--spatial_mesh', '2'])
+        spans.clear()
+        sp.COUNTS.clear()
+        marks = []
+        r = _sp_steps(model, lambda: marks.append(
+            {k: len(v) for k, v in spans.items()}))
+        # the last step's spans: between the last two marks
+        r['last_step_spans_ms'] = {
+            k: v[marks[-2].get(k, 0):marks[-1].get(k, 0)]
+            for k, v in spans.items()}
+        r['collectives'] = dict(sp.COUNTS)
+        torch.save(r, os.path.join(out, 'sp_rank%d.pt' % rank))
+    finally:
+        parallel.shutdown()
+        (sp._exchange, mesh.all_reduce_sum_in_,
+         torch.distributed.all_gather) = saved
+
+
+def sp_sharded_run(plant=None):
+    """Two gloo sp ranks on cuda:0 (with the SP_PLANTS fault ``plant``):
+    their results."""
+    port = parallel.mesh.free_port()
+    ctx = torch.multiprocessing.start_processes(
+        _sp_rank, args=(port, RESULTS_DIR, plant), nprocs=2, join=False,
+        start_method='spawn')
+    deadline = time.time() + SP_JOIN_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.time() < deadline, 'the spatial-mesh ranks did not '
+                  'end within %d s' % SP_JOIN_TIMEOUT)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return [torch.load(os.path.join(RESULTS_DIR, 'sp_rank%d.pt' % r),
+                       weights_only=True) for r in range(2)]
+
+
+def sp_compare():
+    """SP_RUNS one-process runs and one sharded run of SP_STEPS steps from
+    one seed: every state and loss, the distances, the step times."""
+    ones = []
+    for i in range(SP_RUNS):
+        model = _sp_model('one%d' % i)
+        ones.append(_sp_steps(model))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = sp_sharded_run()
+
+    def st(r):
+        return r['state'], r['losses']
+    pairs = {'one%d-one%d' % (i, j): _state_diff(st(ones[i]), st(ones[j]))
+             for i in range(SP_RUNS) for j in range(i + 1, SP_RUNS)}
+    sharded = {'rank0-one%d' % i: _state_diff(st(o), st(ranks[0]))
+               for i, o in enumerate(ones)}
+    return ones, ranks, pairs, sharded
+
+
+def phase_spatial_mesh(books):
+    """(c) train --spatial_mesh 2 on this one-card machine raises; (a) two
+    gloo ranks on cuda:0 split the height of the bench configuration (f32,
+    batch 1) against SP_RUNS one-process runs: losses and every parameter,
+    Adam moment and pool within dm_limits (SP_SPREAD_FLOOR), each rank's
+    launches sp_per_step's (every conv site on its kernel, the IN sites of
+    16 rows or more on the row-split entries), the ranks' states bitwise
+    equal; the step's time, and its halo exchanges', all-reduces' and
+    all-gathers' shares of it."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    try:
+        trainer.main(TRAIN_FLAGS + ON_CARD + [
+            '--spatial_mesh', '2', '--name', SP_NAME + '_cards'])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and 'fewer cards than workers' in raised
+          and '--spatial_mesh 2' in raised
+          and 'has %d cards' % cards in raised,
+          'train --spatial_mesh 2 on %d card(s) did not raise the '
+          'fewer-cards error: %r' % (cards, raised))
+    print('  --spatial_mesh 2 on %d card(s): %s' % (cards, raised))
+
+    ones, ranks, pairs, sharded = sp_compare()
+    per = sp_per_step(books)
+    expect = expected(per, SP_STEPS)
+    one_expect = expected(LAUNCHES_PER_STEP, SP_STEPS)
+    for i, r in enumerate(ones):
+        check(r['counts'] == one_expect, 'one-process run %d: launches %s, '
+              'expected %s' % (i, r['counts'], one_expect))
+    for rank, r in enumerate(ranks):
+        check(r['counts'] == expect, 'spatial-mesh rank %d: launches %s, '
+              'expected %s' % (rank, r['counts'], expect))
+        check(all(r['counts'][k] > 0 for k in per),
+              'spatial-mesh rank %d: a kernel of the path never launched: '
+              '%s' % (rank, r['counts']))
+        d = _state_diff((ranks[0]['state'], ranks[0]['losses']),
+                        (r['state'], r['losses']))
+        check(d['differ'] == 0 and not any(d['losses'].values()),
+              'spatial-mesh rank %d: %d tensors differ from rank 0 (%s), '
+              'losses %s' % (rank, d['differ'], d['name'], d['losses']))
+    limits = dm_limits(pairs, ones[0]['losses'], floor=SP_SPREAD_FLOOR)
+    over = {n: _over_limits(d, limits) for n, d in sharded.items()}
+    for n, d in sharded.items():
+        print('  %s: whole %.3g, worst %.3g (%s), losses %s'
+              % (n, d['whole'], d['worst'], d['name'], d['losses']))
+    for n, d in pairs.items():
+        print('  %s: whole %.3g, worst %.3g (%s), losses %s'
+              % (n, d['whole'], d['worst'], d['name'], d['losses']))
+    check(not any(over.values()), 'spatial-mesh steps beyond the limits '
+          '%s: %s' % (limits, over))
+    rank_ms = [statistics.median(r['ms'][1:]) for r in ranks]
+    one_ms = statistics.median(o['ms'][-1] for o in ones)
+    shares = [{k: dict(calls=len(v), ms=sum(v))
+               for k, v in r['last_step_spans_ms'].items()} for r in ranks]
+    print('spatial mesh on %s: 2 gloo ranks on one card, half the rows '
+          'each: %s ms a step (rank 0, 1); of rank 0\'s last step %s; one '
+          'process: %.1f ms a step; collectives a run (rank 0) %s'
+          % (card_line(), ', '.join('%.1f' % m for m in rank_ms),
+             ', '.join('%s %d calls %.1f ms' % (k, v['calls'], v['ms'])
+                       for k, v in sorted(shares[0].items())), one_ms,
+             ranks[0]['collectives']))
+    return dict(cards_error=raised, limits=limits, pairs=pairs,
+                sharded=sharded, rank_step_ms=[r['ms'] for r in ranks],
+                one_step_ms=[o['ms'] for o in ones], last_step_shares=shares,
+                collectives=ranks[0]['collectives'], per_step=per,
+                launches=ranks[0]['counts'])
+
 
 def main():
     t_start = time.time()
@@ -5066,9 +5454,6 @@ def main():
           'gate on and off')
     readme = {'gate_on': readme_train(True, TRAIN_IMAGES),
               'gate_off': readme_train(False, TRAIN_IMAGES)}
-    heading('== reference: one f32 train step with the region\'s gate on, '
-          'card vs CPU plain')
-    ref_step_gated = phase_reference_step(gate=True)
     heading('== reference: one bf16 train step with the region\'s gate on (the '
           'README step), card vs CPU plain, both in bf16')
     ref_step_bf16 = phase_reference_step(gate=True, dtype='bfloat16')
@@ -5182,12 +5567,23 @@ def main():
     dm_seconds = time.time() - t_dm
     print('data-mesh phase: %.1f s' % dm_seconds)
 
+    heading('== spatial parallelism (--spatial_mesh): the row-split IN '
+            'entries vs their plain versions; too few cards raises; two '
+            'gloo ranks on one card split the height against one process')
+    t_sp = time.time()
+    per_site_sp, agg_sp = phase_spatial_in()
+    agg.update(agg_sp)
+    spatial_mesh = phase_spatial_mesh(books)
+    sp_seconds = time.time() - t_sp
+    print('spatial-mesh phases: %.1f s' % sp_seconds)
+
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
                  'instance_norm_bwd', 'conv4s2', 'conv3x3_in_stats',
-                 'instance_norm_apply'):
+                 'instance_norm_apply') + SP_IN_KERNELS:
         a = agg[name]
-        run = readme['gate_on'] if name in agg_r else train16
+        run = (readme['gate_on'] if name in agg_r else spatial_mesh
+               if name in SP_IN_KERNELS else train16)
         kernels.append(dict(
             name=name, route='cuda', source=KERNEL_INFO[name]['source'],
             replaces=KERNEL_INFO[name]['replaces'],
@@ -5230,7 +5626,6 @@ def main():
                                  reference_step=ref_step_np),
                   train=dict(bf16=train16, f32=train32, profile=prof,
                              reference_step=ref_step,
-                             reference_step_gated=ref_step_gated,
                              reference_step_bf16=ref_step_bf16),
                   stage1=dict(bf16=stage1_16, f32=stage1_32,
                               sampler_loop_seconds=r_s1['loop_seconds'],
@@ -5292,6 +5687,8 @@ def main():
                           for path, b in gate_paths.items()},
                       seconds=gate_seconds),
                   data_mesh=dict(data_mesh, seconds=dm_seconds),
+                  spatial_mesh=dict(spatial_mesh, in_sites=per_site_sp,
+                                    seconds=sp_seconds),
                   new_site_books={
                       path: {k: {repr(s_): c for s_, c in v.items()}
                              for k, v in b.items()}

@@ -260,28 +260,32 @@ in_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// dx of one chunk of a plane from `nparts` partial sums a plane of g' and
+// g' x^, each mean taken over `count` elements (the plane's HW, or under a
+// row split the global plane's)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     const float* __restrict__ mean,
                     const float* __restrict__ rstd,
                     const float2* __restrict__ partials, T* __restrict__ dx,
-                    int HW, int chunk, int splits, int has_act, float slope) {
+                    int HW, int chunk, int nparts, float count, int has_act,
+                    float slope) {
   __shared__ float stat[2];
   const int p = blockIdx.x;
   const int s = blockIdx.y;
   if (threadIdx.x < 32) {
     float s1 = 0.f, s2 = 0.f;
-    for (int i = threadIdx.x; i < splits; i += 32) {
-      const float2 v = partials[(size_t)p * splits + i];
+    for (int i = threadIdx.x; i < nparts; i += 32) {
+      const float2 v = partials[(size_t)p * nparts + i];
       s1 += v.x;
       s2 += v.y;
     }
     s1 = warp_sum(s1);
     s2 = warp_sum(s2);
     if (threadIdx.x == 0) {
-      stat[0] = s1 / HW;
-      stat[1] = s2 / HW;
+      stat[0] = s1 / count;
+      stat[1] = s2 / count;
     }
   }
   __syncthreads();
@@ -298,6 +302,24 @@ in_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ g,
     if (has_act && xh < 0.f) gp *= slope;
     store(dx + base + i, (gp - gm - xh * gz) * r);
   }
+}
+
+// each plane's `splits` partial sums folded into one (sum, sum) pair, in the
+// order the apply kernels fold them: the sums of a plane's rows on this
+// rank, which a row-split run all-reduces before it applies
+__global__ void __launch_bounds__(32)
+in_fold_kernel(const float2* __restrict__ partials, float2* __restrict__ sums,
+               int splits) {
+  const int p = blockIdx.x;
+  float s1 = 0.f, s2 = 0.f;
+  for (int i = threadIdx.x; i < splits; i += 32) {
+    const float2 v = partials[(size_t)p * splits + i];
+    s1 += v.x;
+    s2 += v.y;
+  }
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (threadIdx.x == 0) sums[p] = make_float2(s1, s2);
 }
 
 // ------------------------------------------------------ the one-launch route --
@@ -693,7 +715,48 @@ void launch_bwd(const void* x, const void* g, const float* mean,
       HW, chunk, splits, has_act, slope);
   in_bwd_apply_kernel<T><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), mean, rstd, part,
-      static_cast<T*>(dx), HW, chunk, splits, has_act, slope);
+      static_cast<T*>(dx), HW, chunk, splits, static_cast<float>(HW), has_act,
+      slope);
+}
+
+// The row-split route's pieces (the two-pass kernels with a fold between):
+// a plane's (sum x, sum x^2), its (sum g', sum g' x^) given the statistics,
+// and dx given the all-reduced sums and their count.
+template <typename T>
+void launch_partial_stats(const void* x, float* partials, float* sums, int NC,
+                          int HW, int splits, cudaStream_t stream) {
+  const int chunk = (HW + splits - 1) / splits;
+  float2* part = reinterpret_cast<float2*>(partials);
+  in_stats_kernel<T><<<dim3(NC, splits), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), part, HW, chunk, splits);
+  in_fold_kernel<<<NC, 32, 0, stream>>>(part, reinterpret_cast<float2*>(sums),
+                                        splits);
+}
+
+template <typename T>
+void launch_bwd_partial_stats(const void* x, const void* g, const float* mean,
+                              const float* rstd, float* partials, float* sums,
+                              int NC, int HW, int splits, int has_act,
+                              float slope, cudaStream_t stream) {
+  const int chunk = (HW + splits - 1) / splits;
+  float2* part = reinterpret_cast<float2*>(partials);
+  in_bwd_stats_kernel<T><<<dim3(NC, splits), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), mean, rstd, part,
+      HW, chunk, splits, has_act, slope);
+  in_fold_kernel<<<NC, 32, 0, stream>>>(part, reinterpret_cast<float2*>(sums),
+                                        splits);
+}
+
+template <typename T>
+void launch_bwd_apply(const void* x, const void* g, const float* mean,
+                      const float* rstd, const float* sums, void* dx, int NC,
+                      int HW, int splits, float count, int has_act,
+                      float slope, cudaStream_t stream) {
+  const int chunk = (HW + splits - 1) / splits;
+  in_bwd_apply_kernel<T><<<dim3(NC, splits), THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g), mean, rstd,
+      reinterpret_cast<const float2*>(sums), static_cast<T*>(dx), HW, chunk, 1,
+      count, has_act, slope);
 }
 
 template <typename T>
@@ -846,4 +909,76 @@ extern "C" int instance_norm_act_bwd(const void* x, const void* g,
   Job job{x, g, dx, mean, rstd, nullptr, NC, HW, p.chunk, p.cluster, has_act,
           0.f, slope};
   return finish(launch_plane(p, job, dtype, 1, s));
+}
+
+// ---------------------------------------------- the row-split route's entries --
+// Under --spatial_mesh a plane's rows lie on several ranks: each computes its
+// rows' sums, the sums are all-reduced, then each applies.  These entries
+// are the two-pass route's kernels (the JAX `_fwd_stats_kernel` :297,
+// `_bwd_stats_kernel` :319 and `_bwd_apply_kernel` :337 of ops/pallas/
+// instance_norm.py) with the fold to one pair a plane; the apply with given
+// statistics is `instance_norm_apply` above.  x, g, dx: NC planes of HW
+// elements of `dtype`; sums: NC float pairs (sum, sum); partials: `workspace`
+// floats of scratch, at least 2 * NC * splits (splits = instance_norm_splits
+// (HW)).  Each returns cudaErrorInvalidValue for a short workspace or an
+// unknown dtype, else cudaGetLastError() after its launches.
+
+// The two-pass route's splits of a plane of HW elements.
+extern "C" int instance_norm_splits(int HW) { return splits_for(HW); }
+
+// sums[p] = (sum x, sum x^2) over plane p.
+extern "C" int instance_norm_partial_stats(const void* x, float* partials,
+                                           long long workspace, float* sums,
+                                           int NC, int HW, int dtype,
+                                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int splits = splits_for(HW);
+  if ((dtype != 0 && dtype != 1) || partials == nullptr ||
+      workspace < 2LL * NC * splits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    launch_partial_stats<float>(x, partials, sums, NC, HW, splits, s);
+  else
+    launch_partial_stats<__nv_bfloat16>(x, partials, sums, NC, HW, splits, s);
+  return finish(cudaSuccess);
+}
+
+// sums[p] = (sum g', sum g' x^) over plane p, x^ = (x - mean) * rstd and
+// g' = g * act'(x^), from the (global) mean and rstd.
+extern "C" int instance_norm_bwd_partial_stats(
+    const void* x, const void* g, const float* mean, const float* rstd,
+    float* partials, long long workspace, float* sums, int NC, int HW,
+    int has_act, float slope, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int splits = splits_for(HW);
+  if ((dtype != 0 && dtype != 1) || partials == nullptr ||
+      workspace < 2LL * NC * splits)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    launch_bwd_partial_stats<float>(x, g, mean, rstd, partials, sums, NC, HW,
+                                    splits, has_act, slope, s);
+  else
+    launch_bwd_partial_stats<__nv_bfloat16>(x, g, mean, rstd, partials, sums,
+                                            NC, HW, splits, has_act, slope, s);
+  return finish(cudaSuccess);
+}
+
+// dx = rstd * (g' - s1 / count - x^ * s2 / count) with (s1, s2) = sums[p]
+// (all-reduced over the ranks) and count the global plane's elements.
+extern "C" int instance_norm_bwd_apply(const void* x, const void* g,
+                                       const float* mean, const float* rstd,
+                                       const float* sums, void* dx, int NC,
+                                       int HW, float count, int has_act,
+                                       float slope, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int splits = splits_for(HW);
+  if (dtype == 0)
+    launch_bwd_apply<float>(x, g, mean, rstd, sums, dx, NC, HW, splits, count,
+                            has_act, slope, s);
+  else if (dtype == 1)
+    launch_bwd_apply<__nv_bfloat16>(x, g, mean, rstd, sums, dx, NC, HW,
+                                    splits, count, has_act, slope, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return finish(cudaSuccess);
 }

@@ -25,6 +25,13 @@ pooled batch (the pools stay replicated and see the gathered batch:
 ``query_pool``, ``sample_pool``); every Adam averages its gradients over the
 ranks before it steps (``adam``), and a chunk runs its steps eagerly, one
 by one, with no captured graph (as JAX runs chunks under a mesh).
+
+Under --spatial_mesh (parallel/spatial.py) each step input, noise draw and
+pooled batch of a sharded height is cut to the rank's rows too, after the
+batch rows; each pool of a sharded height holds the rank's rows of its
+images, applying the same decisions as every other rank (``query_pool``),
+and a checkpoint stores them whole (``save_full_state`` inside
+spatial.whole_pools, train.py ``save``).
 """
 
 import os
@@ -36,6 +43,7 @@ from .pools import (REJECT, decide, draw_decisions, pool_apply, pool_take,
                     sample_rows)
 from .. import nn, parallel
 from ..ops.kernels import set_kernels_enabled
+from ..parallel import spatial
 from ..utils import pth as pthio
 
 # eager steps a model runs before a chunk captures its step: the first fills
@@ -127,6 +135,13 @@ class BaseModel:
                 % (opt.data_mesh, opt.data_mesh,
                    'one of %d' % parallel.world() if parallel.active()
                    else 'none'))
+        if (opt.isTrain and getattr(opt, 'spatial_mesh', 0) > 1
+                and spatial.size() != opt.spatial_mesh):
+            raise RuntimeError(
+                '--spatial_mesh %d splits the height over %d ranks, but this '
+                'process is not in such a group: run it through the train '
+                'entry point (parallel.launch)'
+                % (opt.spatial_mesh, opt.spatial_mesh))
         set_kernels_enabled(not opt.no_pallas)
         seed = opt.manualSeed if opt.manualSeed is not None else 0
         self.init_generator = torch.Generator().manual_seed(seed)
@@ -155,7 +170,9 @@ class BaseModel:
         --batchSize): in a process group, this rank's rows of it; with
         ``rows`` False the whole draw (a replicated pool's)."""
         x = self.noise_draw(shape)
-        return parallel.rows(x) if rows else x
+        if not rows:
+            return x
+        return spatial.cut(parallel.rows(x))
 
     # ----------------------------------------------------------- inputs -- #
     def host_inputs(self, input):
@@ -174,7 +191,10 @@ class BaseModel:
         """The step inputs of one loader batch; in a process group this
         rank's rows of it, cut before the host copy."""
         for name, t in self.host_inputs(input).items():
-            setattr(self, name, self.to_device(parallel.rows(t)))
+            t = parallel.rows(t)
+            h = t.shape[-2]
+            setattr(self, name, spatial.mark(
+                self.to_device(spatial.cut(t)), h))
 
     def get_image_paths(self):
         return self.image_paths
@@ -227,9 +247,10 @@ class BaseModel:
         pool = self.pools[name]
         if pool is None:
             return batch
+        h = spatial.height(batch)
         batch = parallel.gather_rows(batch.detach().to(pool['images'].dtype))
-        return parallel.rows(pool_apply(
-            pool, batch, self._next_rows(name, batch.shape[0])))
+        return spatial.mark(parallel.rows(pool_apply(
+            pool, batch, self._next_rows(name, batch.shape[0]))), h)
 
     def sample_pool(self, name):
         """--batchSize stored images of the sampled pool ``name``, at the
@@ -407,7 +428,7 @@ class BaseModel:
         for k, p in pools.items():
             saved = payload['pools'][k]
             if p is not None:
-                p['images'].copy_(saved['images'])
+                p['images'].copy_(spatial.cut(saved['images']))
                 p['num'] = saved['num']
         self.noise_generator.set_state(payload['generators']['noise'])
         self.pool_generator.set_state(payload['generators']['pool'])

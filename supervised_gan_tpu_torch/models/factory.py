@@ -1,7 +1,9 @@
 """Model recipe factory: the string dispatch of supervised_gan_tpu/models/
 factory.py (reference models/models.py:2-44, plus cgan_causal, which the
 JAX package registers).  In a process group every rank's networks start as
-rank 0's (parallel/mesh.py broadcast_modules), as DDP's do."""
+rank 0's (parallel/mesh.py broadcast_modules), as DDP's do.  Under
+--spatial_mesh a recipe it is not yet ported for raises, naming itself
+(parallel/mesh.py check_spatial)."""
 
 import torch
 
@@ -10,6 +12,8 @@ from .. import parallel
 
 def create_model(opt):
     print(opt.model)
+    if parallel.spatial.active():
+        parallel.check_spatial(opt)
     if opt.model == 'fcgan':
         from .fcgan import FCGANModel
         model = FCGANModel()

@@ -22,20 +22,26 @@ A sampled pool (the fixed-noise pool of --use_fixed_noise1) is only read:
 its slots are drawn on the host too (``sample_rows``, rows of the same
 form, each reading its slot and storing nothing) and gathered on the
 device (``pool_take``).
+
+Under --spatial_mesh a pool of a row-sharded height holds this rank's rows
+of its images (``height``: the images' global height); every rank applies
+the same rows, so the ranks' pools together are the unsharded pool.
 """
 
 import torch
+
+from ..parallel import spatial
 
 REJECT = 0.5
 
 
 def init_pool(pool_size, image_shape, device, dtype=torch.float32):
-    """image_shape: (C, H, W).  Size 0 (or less) means no pool."""
+    """image_shape: (C, H, W), global.  Size 0 (or less) means no pool."""
     if pool_size <= 0:
         return None
-    return {'images': torch.zeros((pool_size,) + tuple(image_shape),
-                                  dtype=dtype, device=device),
-            'num': 0}
+    return {'images': torch.zeros(
+        (pool_size,) + spatial.local_shape(image_shape), dtype=dtype,
+        device=device), 'num': 0, 'height': tuple(image_shape)[-2]}
 
 
 def draw_decisions(pool, n, generator):

@@ -33,7 +33,12 @@ Dropout draws its masks, and GaussianNoise its injected noise, from a
 ``torch.Generator`` that the model assigns (``set_noise_generator``), the
 port's counterpart of the JAX ``Ctx`` key.  In a data-parallel run each draw
 is made at the global batch's shape and cut to the rank's rows
-(parallel/mesh.py), so the ranks' masks and noise are the one-process run's.
+(parallel/mesh.py), so the ranks' masks and noise are the one-process run's;
+under --spatial_mesh it is made at the global height too and cut to the
+rank's rows where the tensor is row-sharded (parallel/spatial.py
+``draw_like``).  The fused region is not yet ported under --spatial_mesh:
+its epilogue's statistics would take the halo rows, so its gate raises
+there.
 """
 
 import math
@@ -43,6 +48,7 @@ import torch
 from torch import nn
 
 from .. import parallel
+from ..parallel import spatial
 from ..ops import (batch_norm, bilinear_upsample, conv2d, conv3x3_in_act,
                    conv3x3_in_supported, conv_transpose2d, instance_norm_act,
                    reflection_pad)
@@ -153,9 +159,9 @@ class Dropout(nn.Module):
                                'set_noise_generator on its network')
         keep = 1.0 - self.p
         # drawn at the global batch's shape, this rank's rows kept
-        mask = parallel.rows(torch.rand(
-            parallel.global_shape(x.shape), generator=self.generator,
-            device=x.device)) < keep
+        mask = spatial.draw_like(x, lambda shape: parallel.rows(torch.rand(
+            parallel.global_shape(shape), generator=self.generator,
+            device=x.device))) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -179,7 +185,8 @@ class GaussianNoise(nn.Module):
             dtype=dtype, device=device))
 
     def forward(self, y):
-        return y + self.sigma * self.draw(y.shape, y.dtype, y.device)
+        return y + self.sigma * spatial.draw_like(
+            y, lambda shape: self.draw(shape, y.dtype, y.device))
 
 
 def set_noise_generator(net, generator):
@@ -238,6 +245,11 @@ class Sequential(nn.Sequential):
         i = 0
         while i < len(layers):
             layer = layers[i]
+            if _CONV3_IN_FUSED and kernels_enabled() and spatial.active():
+                raise NotImplementedError(
+                    'the fused conv3x3 + InstanceNorm region '
+                    '(SGAN_TPU_CONV3_IN=1) is not yet ported under '
+                    '--spatial_mesh')
             if (_CONV3_IN_FUSED and kernels_enabled()
                     and self._conv3x3_in_at(i, x)):
                 slope = _slope_of(layers[i + 2]) if i + 2 < len(layers) \

@@ -18,11 +18,17 @@ Counterparts of supervised_gan_tpu/nn/losses.py:18-75:
                         p = 0 or 1, which poisoned 512 px training (the
                         round-4 NaN fix, losses.py:32-42 there).
 Every loss is computed in float32 whatever the prediction's dtype.
+
+Under --spatial_mesh (parallel/spatial.py ``mean``) the map losses are this
+rank's share: its rows of the map (of a replicated map, the rows the
+partition gives it) summed over the map's global count; the sp ranks'
+shares add up to the loss.
 """
 
 import torch
 
 from .. import parallel
+from ..parallel import spatial
 
 
 def _safe_log(x):
@@ -45,28 +51,28 @@ class _BCEElem(torch.autograd.Function):
 
 def bce_loss(pred, target):
     """Mean binary cross entropy; pred in [0, 1]."""
-    return _BCEElem.apply(pred.float(), target.float()).mean()
+    return spatial.mean(_BCEElem.apply(pred.float(), target.float()))
 
 
 def gan_loss(pred, target_is_real, use_lsgan=True):
     p = pred.float()
     target = 1.0 if target_is_real else 0.0
     if use_lsgan:
-        return ((p - target) ** 2).mean()
+        return spatial.mean((p - target) ** 2)
     return bce_loss(p, torch.full_like(p, target))
 
 
 def gan_loss_multiclass(logits, target_label):
     """logits (N, num_classes, H, W); target_label an int class id."""
     logp = torch.log_softmax(logits.float(), dim=1)
-    return -logp[:, target_label].mean()
+    return -spatial.mean(logp[:, target_label])
 
 
 def weighted_l1_loss(x, y, w=None):
     z = (x.float() - y.float()).abs()
     if w is not None:
         z = z * w.float()
-    return z.mean()
+    return spatial.mean(z)
 
 
 def cross_entropy_2d(logits, labels, weights=None):

@@ -13,11 +13,14 @@ from .conv3x3_dw import conv3x3_dw, conv3x3_dw_plain
 from .conv3x3_in import conv3x3_in_stats, conv3x3_in_stats_plain
 from .conv4s2 import conv4s2, conv4s2_plain
 from .convt4s2 import convt4s2, convt4s2_plain
-from .instance_norm import (instance_norm_act, instance_norm_act_plain,
-                            instance_norm_apply, instance_norm_apply_plain,
-                            instance_norm_bwd, instance_norm_bwd_plain)
+from .instance_norm import (
+    instance_norm_act, instance_norm_act_plain, instance_norm_apply,
+    instance_norm_apply_plain, instance_norm_bwd, instance_norm_bwd_plain,
+    instance_norm_partial_stats, instance_norm_partial_stats_plain,
+    instance_norm_bwd_partial_stats, instance_norm_bwd_partial_stats_plain,
+    instance_norm_bwd_apply, instance_norm_bwd_apply_plain)
 from .functions import (Conv3x3, Conv3x3InAct, Conv4s2, ConvT4s2,
-                        InstanceNormAct)
+                        InstanceNormAct, InstanceNormActRows)
 
 # The dispatch switch: the counterpart of the JAX package's PALLAS_ENABLED
 # and set_pallas_enabled (nn/core.py:85-120 there), which its model init sets
@@ -36,7 +39,9 @@ def kernels_enabled():
 
 
 KERNELS = (conv3x3, convt4s2, instance_norm_act, conv3x3_dw,
-           instance_norm_bwd, conv4s2, conv3x3_in_stats, instance_norm_apply)
+           instance_norm_bwd, conv4s2, conv3x3_in_stats, instance_norm_apply,
+           instance_norm_partial_stats, instance_norm_bwd_partial_stats,
+           instance_norm_bwd_apply)
 
 
 def reset_launch_counts():
@@ -54,6 +59,10 @@ __all__ = ["conv3x3", "conv3x3_plain", "conv3x3_dw", "conv3x3_dw_plain",
            "instance_norm_act", "instance_norm_act_plain",
            "instance_norm_apply", "instance_norm_apply_plain",
            "instance_norm_bwd", "instance_norm_bwd_plain",
+           "instance_norm_partial_stats", "instance_norm_partial_stats_plain",
+           "instance_norm_bwd_partial_stats",
+           "instance_norm_bwd_partial_stats_plain",
+           "instance_norm_bwd_apply", "instance_norm_bwd_apply_plain",
            "Conv3x3", "Conv3x3InAct", "Conv4s2", "ConvT4s2",
-           "InstanceNormAct", "KERNELS", "reset_launch_counts",
+           "InstanceNormAct", "InstanceNormActRows", "KERNELS", "reset_launch_counts",
            "launch_counts", "set_kernels_enabled", "kernels_enabled"]

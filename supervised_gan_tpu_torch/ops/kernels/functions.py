@@ -16,6 +16,7 @@ from .conv3x3_dw import conv3x3_dw
 from .conv3x3_in import conv3x3_in_stats
 from .conv4s2 import conv4s2
 from .convt4s2 import convt4s2
+from . import instance_norm as _in
 from .instance_norm import (instance_norm_act, instance_norm_apply,
                             instance_norm_bwd)
 
@@ -158,3 +159,49 @@ class InstanceNormAct(torch.autograd.Function):
         x, mean, rstd = ctx.saved_tensors
         return (instance_norm_bwd(x, g.contiguous(), mean, rstd, ctx.slope),
                 None, None)
+
+
+# the row-split route's pieces: the kernel wrappers, or their plain versions
+# (--no_pallas)
+_ROWS_KERNELS = (_in.instance_norm_partial_stats, _in.instance_norm_apply,
+                 _in.instance_norm_bwd_partial_stats,
+                 _in.instance_norm_bwd_apply)
+_ROWS_PLAIN = (_in.instance_norm_partial_stats_plain,
+               _in.instance_norm_apply_plain,
+               _in.instance_norm_bwd_partial_stats_plain,
+               _in.instance_norm_bwd_apply_plain)
+
+
+class InstanceNormActRows(torch.autograd.Function):
+    """y = instance_norm_act of planes whose rows are split over ranks
+    (--spatial_mesh): x holds this rank's rows, ``count`` is the global
+    plane's H x W and ``reduce_`` sums a tensor in place over the ranks.
+    Forward: each plane's (sum x, sum x^2) of these rows, all-reduced; mean
+    and rstd = 1 / sqrt(E[x^2] - mean^2 + eps) in float32, as the JAX
+    streaming route forms them (instance_norm.py:371-386 there); apply.
+    Backward: each plane's (sum g', sum g' x^), all-reduced; dx.  ``plain``
+    takes the plain versions (the kernels switched off)."""
+
+    @staticmethod
+    def forward(ctx, x, eps, slope, count, reduce_, plain=False):
+        stats, apply, bwd_stats, bwd_apply = (_ROWS_PLAIN if plain
+                                              else _ROWS_KERNELS)
+        x = x.contiguous()
+        sums = reduce_(stats(x))
+        mean = sums[..., 0] / count
+        var = (sums[..., 1] / count - mean * mean).clamp_min(0.0)
+        rstd = torch.rsqrt(var + eps).contiguous()
+        mean = mean.contiguous()
+        ctx.save_for_backward(x, mean, rstd)
+        ctx.slope, ctx.count, ctx.reduce_ = slope, count, reduce_
+        ctx.bwd = (bwd_stats, bwd_apply)
+        return apply(x, mean, rstd, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd = ctx.saved_tensors
+        bwd_stats, bwd_apply = ctx.bwd
+        g = g.contiguous()
+        sums = ctx.reduce_(bwd_stats(x, g, mean, rstd, ctx.slope))
+        return (bwd_apply(x, g, mean, rstd, sums, ctx.count, ctx.slope),
+                None, None, None, None, None)

@@ -45,6 +45,18 @@ _SIGNATURES = {
     'instance_norm_act_bwd': (
         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    'instance_norm_splits': ([ctypes.c_int], ctypes.c_int),
+    'instance_norm_partial_stats': (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int),
+    'instance_norm_bwd_partial_stats': (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                ctypes.c_void_p], ctypes.c_int),
+    'instance_norm_bwd_apply': (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p], ctypes.c_int),
 }
 
 # csrc/instance_norm.cu's plan: a block holds about TARGET_BYTES of its plane
@@ -108,6 +120,40 @@ def instance_norm_bwd_plain(x, g, mean, rstd, slope=None):
         gp = torch.where(xh >= 0, gp, gp * slope)
     gm = gp.mean(dim=(2, 3), keepdim=True)
     gz = (gp * xh).mean(dim=(2, 3), keepdim=True)
+    return ((gp - gm - xh * gz) * r).to(x.dtype)
+
+
+def instance_norm_partial_stats_plain(x):
+    """Each plane's (sum x, sum x^2) in float32, (N, C, 2)."""
+    xf = x.float()
+    return torch.stack([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))], -1)
+
+
+def _xhat_gp(x, g, mean, rstd, slope):
+    n, c = mean.shape
+    xh = ((x.float() - mean.float().view(n, c, 1, 1))
+          * rstd.float().view(n, c, 1, 1))
+    gp = g.float()
+    if slope is not None:
+        gp = torch.where(xh >= 0, gp, gp * slope)
+    return xh, gp
+
+
+def instance_norm_bwd_partial_stats_plain(x, g, mean, rstd, slope=None):
+    """Each plane's (sum g', sum g' x^) in float32, (N, C, 2), x^ and g' as
+    instance_norm_bwd_plain forms them from the given statistics."""
+    xh, gp = _xhat_gp(x, g, mean, rstd, slope)
+    return torch.stack([gp.sum(dim=(2, 3)), (gp * xh).sum(dim=(2, 3))], -1)
+
+
+def instance_norm_bwd_apply_plain(x, g, mean, rstd, sums, count, slope=None):
+    """dx = rstd (g' - s1 / count - x^ s2 / count), (s1, s2) = ``sums``
+    (N, C, 2) over ``count`` elements a plane, in float32; x's dtype out."""
+    n, c = mean.shape
+    xh, gp = _xhat_gp(x, g, mean, rstd, slope)
+    gm = (sums[..., 0].float() / count).view(n, c, 1, 1)
+    gz = (sums[..., 1].float() / count).view(n, c, 1, 1)
+    r = rstd.float().view(n, c, 1, 1)
     return ((gp - gm - xh * gz) * r).to(x.dtype)
 
 
@@ -271,3 +317,100 @@ def instance_norm_bwd(x, g, mean, rstd, slope=None):
 
 
 instance_norm_bwd.launches = 0
+
+
+def _partials(x):
+    """(kept tensor, pointer, floats) of the row-split entries' scratch."""
+    n, c, h, w = x.shape
+    part = torch.empty((2 * n * c * splits_for(h * w),), dtype=torch.float32,
+                       device=x.device)
+    return part, part.data_ptr(), part.numel()
+
+
+def _check_plane(name, x, *others):
+    check_cuda_inputs(name, x, *others)
+    if x.dim() != 4 or x.numel() == 0 or any(t.shape != x.shape
+                                             for t in others):
+        raise ValueError('%s: x%s must be non-empty (N, C, H, W) tensors of '
+                         'one shape, got %s' % (
+                             name, ' and g' if others else '',
+                             [tuple(t.shape) for t in (x,) + others]))
+
+
+def instance_norm_partial_stats(x):
+    """Each plane's (sum x, sum x^2) over this tensor's rows, (N, C, 2)
+    float32.  CPU tensors take instance_norm_partial_stats_plain; CUDA
+    tensors launch the kernels or raise."""
+    if on_cpu(x):
+        return instance_norm_partial_stats_plain(x)
+    _check_plane('instance_norm_partial_stats', x)
+    n, c, h, w = x.shape
+    part, pptr, nws = _partials(x)
+    sums = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+    lib = build.load('instance_norm', _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.instance_norm_partial_stats(
+            x.data_ptr(), pptr, nws, sums.data_ptr(), n * c, h * w,
+            DTYPE_CODES[x.dtype], stream_arg(x))
+        instance_norm_partial_stats.launches += 1
+    raise_on_error('instance_norm_partial_stats', err)
+    return sums
+
+
+instance_norm_partial_stats.launches = 0
+
+
+def instance_norm_bwd_partial_stats(x, g, mean, rstd, slope=None):
+    """Each plane's (sum g', sum g' x^) over this tensor's rows from the
+    (global) (N, C) float32 mean and rstd, (N, C, 2) float32.  CPU tensors
+    take instance_norm_bwd_partial_stats_plain; CUDA tensors launch the
+    kernels or raise."""
+    if on_cpu(x, g, mean, rstd):
+        return instance_norm_bwd_partial_stats_plain(x, g, mean, rstd, slope)
+    _check_plane('instance_norm_bwd_partial_stats', x, g)
+    _check_stats('instance_norm_bwd_partial_stats', x, mean, rstd)
+    n, c, h, w = x.shape
+    part, pptr, nws = _partials(x)
+    sums = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+    lib = build.load('instance_norm', _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.instance_norm_bwd_partial_stats(
+            x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            pptr, nws, sums.data_ptr(), n * c, h * w, *_act_args(slope),
+            DTYPE_CODES[x.dtype], stream_arg(x))
+        instance_norm_bwd_partial_stats.launches += 1
+    raise_on_error('instance_norm_bwd_partial_stats', err)
+    return sums
+
+
+instance_norm_bwd_partial_stats.launches = 0
+
+
+def instance_norm_bwd_apply(x, g, mean, rstd, sums, count, slope=None):
+    """dx of instance_norm_act from the (global) (N, C) float32 mean and
+    rstd and the (N, C, 2) float32 sums of g' and g' x^ over ``count``
+    elements a plane.  CPU tensors take instance_norm_bwd_apply_plain; CUDA
+    tensors launch the kernel or raise."""
+    if on_cpu(x, g, mean, rstd, sums):
+        return instance_norm_bwd_apply_plain(x, g, mean, rstd, sums, count,
+                                             slope)
+    _check_plane('instance_norm_bwd_apply', x, g)
+    _check_stats('instance_norm_bwd_apply', x, mean, rstd)
+    n, c, h, w = x.shape
+    if (sums.shape != (n, c, 2) or sums.dtype != torch.float32
+            or sums.device != x.device or not sums.is_contiguous()):
+        raise ValueError('instance_norm_bwd_apply: sums must be contiguous '
+                         'float32 (%d, %d, 2) on %s' % (n, c, x.device))
+    dx = torch.empty_like(x)
+    lib = build.load('instance_norm', _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.instance_norm_bwd_apply(
+            x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            sums.data_ptr(), dx.data_ptr(), n * c, h * w, float(count),
+            *_act_args(slope), DTYPE_CODES[x.dtype], stream_arg(x))
+        instance_norm_bwd_apply.launches += 1
+    raise_on_error('instance_norm_bwd_apply', err)
+    return dx
+
+
+instance_norm_bwd_apply.launches = 0

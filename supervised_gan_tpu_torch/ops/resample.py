@@ -13,11 +13,19 @@ size and device and kept there (``_device_constant``): a host-to-device
 copy from pageable memory synchronizes the host with the device, and a
 captured CUDA graph cannot hold one.  So the first call at a size fills the
 cache, and a miss during a graph capture raises.
+
+Under --spatial_mesh (parallel/spatial.py) each takes global indices: a
+rank's output rows read the input rows their taps name in the global
+image (the bilinear taps' float64 positions of the global height, the
+pool's tiles, the rank's rows of the global banded blur matrix), fetched
+with their halo.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel import spatial
 
 
 def _interp_taps(in_size, out_size, align_corners=True):
@@ -56,19 +64,25 @@ def _device_constant(key, device, make):
     return out
 
 
-def _lerp_axis(x, dim, out_size, align_corners):
+def _lerp_axis(x, dim, out_size, align_corners, window=None):
+    """The two-tap blend along ``dim``; ``window`` (in_size, lo, hi, a):
+    output rows [lo, hi) of a global input of in_size rows, x holding its
+    rows from a on."""
+    in_size, lo, hi, a = window or (x.shape[dim], 0, out_size, 0)
+
     def make():
-        i0, i1, w0, w1 = _interp_taps(x.shape[dim], out_size, align_corners)
+        i0, i1, w0, w1 = [t[lo:hi] for t in _interp_taps(
+            in_size, out_size, align_corners)]
         # the weights round to x's dtype, the sum runs in float32
-        return tuple([torch.from_numpy(i).to(x.device) for i in (i0, i1)]
+        return tuple([torch.from_numpy(i - a).to(x.device) for i in (i0, i1)]
                      + [torch.from_numpy(w).to(x.device, x.dtype).float()
                         for w in (w0, w1)])
 
     i0, i1, w0, w1 = _device_constant(
-        ('lerp', x.shape[dim], out_size, align_corners, x.dtype), x.device,
-        make)
+        ('lerp', in_size, out_size, align_corners, x.dtype, lo, hi, a),
+        x.device, make)
     shape = [1] * x.dim()
-    shape[dim] = out_size
+    shape[dim] = hi - lo
 
     def take(i):
         return x.index_select(dim, i).float()
@@ -83,18 +97,35 @@ def bilinear_upsample(x, scale, align_corners=True):
     source positions in the input's precision; in float32 that moves them
     by ~1e-6 at 512 px, enough to flip ReLU masks downstream against the
     JAX package.)"""
-    h, w = x.shape[2], x.shape[3]
-    y = _lerp_axis(x, 2, h * scale, align_corners)
+    h, w = spatial.height(x), x.shape[3]
+
+    def whole(xw):
+        return _lerp_axis(xw, 2, h * scale, align_corners)
+
+    def need(lo, hi):
+        i0, i1, _, _ = _interp_taps(h, h * scale, align_corners)
+        return int(i0[lo:hi].min()), int(i1[lo:hi].max()) + 1
+
+    def run(rows, a, lo, hi):
+        return _lerp_axis(rows, 2, h * scale, align_corners, (h, lo, hi, a))
+
+    y = (spatial.map_rows(x, h * scale, need, run, whole) if spatial.active()
+         else whole(x))
     return _lerp_axis(y, 3, w * scale, align_corners)
 
 
 def avg_pool(x, kernel):
     """AvgPool2d(kernel, stride=kernel) on a spatial extent it tiles
     exactly (the CRN label pyramid and the bilinear transform's inverse)."""
-    h, w = x.shape[2], x.shape[3]
+    h, w = spatial.height(x), x.shape[3]
     if h % kernel or w % kernel:
         raise ValueError('avg_pool: %dx%d does not tile by %d' % (h, w, kernel))
-    return F.avg_pool2d(x, kernel, kernel)
+    if not spatial.active():
+        return F.avg_pool2d(x, kernel, kernel)
+    return spatial.map_rows(
+        x, h // kernel, lambda lo, hi: (lo * kernel, hi * kernel),
+        lambda rows, a, lo, hi: F.avg_pool2d(rows, kernel, kernel),
+        lambda xw: F.avg_pool2d(xw, kernel, kernel))
 
 
 def matlab_gauss2d(shape=(3, 3), sigma=0.5):
@@ -142,11 +173,33 @@ def blur_downsample(x, scale_factor):
     networks.py:807-813)."""
     if scale_factor <= 1:
         return x
-    h, w = x.shape[2], x.shape[3]
-    ah, aw = _device_constant(
-        ('blur', h, w, scale_factor), x.device,
-        lambda: tuple(torch.from_numpy(_blur_matrix(n, scale_factor))
-                      .to(x.device) for n in (h, w)))
-    y = torch.einsum('oh,nchw->ncow', ah, x.float())
-    y = torch.einsum('pw,ncow->ncop', aw, y)
-    return y.to(x.dtype)
+    h, w = spatial.height(x), x.shape[3]
+
+    def blur(rows, lo, hi, a):
+        # rows [lo, hi) of the global matrix, its columns a .. a + len(rows)
+        def make():
+            full = _blur_matrix(h, scale_factor)[lo:hi]
+            win = np.zeros((hi - lo, rows.shape[2]), np.float32)
+            c0, c1 = max(a, 0), min(a + rows.shape[2], h)
+            win[:, c0 - a:c1 - a] = full[:, c0:c1]
+            return tuple(torch.from_numpy(m).to(x.device)
+                         for m in (win, _blur_matrix(w, scale_factor)))
+
+        ah, aw = _device_constant(
+            ('blur', h, w, scale_factor, lo, hi, a, rows.shape[2]), x.device,
+            make)
+        y = torch.einsum('oh,nchw->ncow', ah, rows.float())
+        y = torch.einsum('pw,ncow->ncop', aw, y)
+        return y.to(x.dtype)
+
+    h_out = -(-h // scale_factor)
+    if not spatial.active():
+        return blur(x, 0, h_out, 0)
+    half = 2 * (scale_factor // 2)
+    kw = 2 * half + 1
+    return spatial.map_rows(
+        x, h_out,
+        lambda lo, hi: (lo * scale_factor - half,
+                        (hi - 1) * scale_factor - half + kw),
+        lambda rows, a, lo, hi: blur(rows, lo, hi, a),
+        lambda xw: blur(xw, 0, h_out, 0))

@@ -5,18 +5,17 @@ surface (names, defaults, list-valued flags) so the README command lines
 parse unchanged.  ``--gpu_ids`` selects the device: ``cuda:<first id>``, or
 the CPU for ``-1``.  Flags whose feature is not yet ported raise
 NotImplementedError, naming themselves, when given a non-default value.
---data_mesh and the --dcn_* flags are data parallelism (parallel/mesh.py):
-the training entry points launch their workers from them (and check them
-against --batchSize there); the samplers run one unsharded process.
+--data_mesh, --spatial_mesh and the --dcn_* flags are data and spatial
+parallelism (parallel/mesh.py, parallel/spatial.py): the training entry
+points launch their workers from them (and check them against --batchSize
+and the recipe there); the samplers run one unsharded process.
 """
 
 import argparse
 import os
 
 # flag -> its default; another value asks for a feature not yet ported
-NOT_YET_PORTED = {
-    'spatial_mesh': 0,
-}
+NOT_YET_PORTED = {}
 
 
 class BaseOptions:
@@ -171,7 +170,8 @@ class BaseOptions:
             if getattr(self.opt, flag, default) != default:
                 raise NotImplementedError(
                     '--%s is not yet ported to the PyTorch package' % flag)
-        for flag in ('data_mesh', 'dcn_num_processes', 'dcn_process_id'):
+        for flag in ('data_mesh', 'spatial_mesh', 'dcn_num_processes',
+                     'dcn_process_id'):
             if getattr(self.opt, flag) < 0:
                 raise ValueError('--%s must be 0 or more, got %d'
                                  % (flag, getattr(self.opt, flag)))

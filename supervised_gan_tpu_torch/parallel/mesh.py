@@ -1,25 +1,34 @@
-"""Data parallelism on torch.distributed: the counterpart of
+"""Data and spatial parallelism on torch.distributed: the counterpart of
 supervised_gan_tpu/parallel/mesh.py.
 
-The JAX package shards one jit program over a 1-D device mesh (--data_mesh
-N) and lets GSPMD insert the collectives.  The port runs one process per
-device instead, PyTorch's own idiom, behind the same command line:
+The JAX package shards one jit program over a (data, sp) device mesh
+(--data_mesh N, --spatial_mesh S; ``make_mesh`` there) and lets GSPMD insert
+the collectives.  The port runs one process per device instead, PyTorch's
+own idiom, behind the same command line.  The grid has N x S ranks (N 1
+for --data_mesh 0 or 1), ordered as JAX's ``devs.reshape(nd, n_sp)``: rank
+``d * S + s`` is data row d, sp index s.  Each data row of S ranks forms an
+sp group (parallel/spatial.py: the image height split over it), each
+column of N ranks a data group:
 
-  * ``launch`` starts --data_mesh N workers (spawned), local worker i on
+  * ``launch`` starts N x S workers (spawned), local worker i on
     ``cuda:i`` (or the CPU under --gpu_ids -1); with --dcn_num_processes P
-    each of the P processes starts N / P of them, global rank
-    ``dcn_process_id * N / P + i``, and all meet at
+    each of the P processes starts N S / P of them, global rank
+    ``dcn_process_id * N S / P + i``, and all meet at
     ``tcp://<--dcn_coordinator>``.  NCCL on CUDA, gloo on the CPU.
   * A sharded step computes what the one-process step computes at the
     global --batchSize, only the reduction order differs: every rank loads
     the same global batch and keeps its rows (``rows``); every random draw
     is made at the global shape from generators all ranks share by seed,
-    then cut to the rank's rows; BatchNorm averages its statistics across
-    ranks (``mean_all_reduce``, differentiable); the image pools stay
+    then cut to the rank's rows; BatchNorm sums its statistics across
+    ranks (spatial.py ``sum_over``, differentiable); the image pools stay
     replicated and see the gathered batch (``gather_rows``); each
     optimizer averages its gradients before it steps
     (``average_gradients``); parameters start as rank 0's
-    (``broadcast_modules``).
+    (``broadcast_modules``).  ``rows``, ``gather_rows``, ``world`` and
+    ``rank`` work over the data group.  Under --spatial_mesh each rank's
+    loss and gradients are its share of its data row's (parallel/
+    spatial.py), so the gradients and the printed losses are summed over
+    the sp group and averaged over the data group.
 
 The hand-written kernels need no gate here: each rank runs them on its own
 rows through the same wrappers (the JAX package turned its IN streaming off
@@ -47,25 +56,83 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 # seconds a collective (and the rendezvous) may wait for the other ranks
 TIMEOUT_S = 900
 
-_group = None        # {'rank', 'world', 'backend', 'device'} while joined
+# {'rank', 'world', 'backend', 'device', 'n_data', 'n_sp', 'data', 'sp',
+#  'data_group', 'sp_group', 'sp_ranks'} while joined: the global rank and
+# size, the grid's shape, this rank's data row and sp index, and the
+# torch.distributed groups of its data column and its sp row (None: the
+# whole world) with the global ranks of the sp row
+_group = None
 _unsharded = 0       # depth of unsharded() regions
 
 
 # ------------------------------------------------------ flags and launch -- #
+# the recipes --spatial_mesh is ported for (the others raise, naming
+# themselves: models/factory.py), each with the --which_model_net* flags of
+# the nets it builds
+SPATIAL_RECIPES = {'fcgan': ('G', 'D'), 'cgan': ('G', 'D'),
+                   'twostage_cycle': ('G1', 'G2', 'F2', 'D1', 'D2')}
+# the nets held under --spatial_mesh (tests/test_torch_spatial_steps.py),
+# by kind; the others raise, naming themselves
+SPATIAL_NETS = {'G': ('fcgan', 'deconv', 'unet_128', 'unet_256', 'crn',
+                      'resnet_9blocks', 'resnet_6blocks'),
+                'F': ('unet_128', 'unet_256'),
+                'D': ('basic', 'n_layers')}
+
+
+def grid(opt):
+    """(data rows, sp ranks a row) of the options: --data_mesh and
+    --spatial_mesh, each 0 or 1 meaning one."""
+    return (max(opt.data_mesh, 1), max(getattr(opt, 'spatial_mesh', 0), 1))
+
+
+def workers(opt):
+    """Ranks of the whole grid."""
+    n, s = grid(opt)
+    return n * s
+
+
+def check_spatial(opt, entry='train'):
+    """Raise NotImplementedError, naming --spatial_mesh, where the options
+    ask for it on a recipe or an entry point it is not yet ported for."""
+    if getattr(opt, 'spatial_mesh', 0) <= 1:
+        return
+    if entry != 'train':
+        raise NotImplementedError('--spatial_mesh is not yet ported for the '
+                                  '%s entry point' % entry)
+    if opt.model not in SPATIAL_RECIPES:
+        raise NotImplementedError(
+            '--spatial_mesh is not yet ported for --model %s (ported: %s)'
+            % (opt.model, ', '.join(SPATIAL_RECIPES)))
+    for net in SPATIAL_RECIPES[opt.model]:
+        flag = 'which_model_net' + net
+        which = getattr(opt, flag, None)
+        if which is not None and which not in SPATIAL_NETS[net[0]]:
+            raise NotImplementedError(
+                '--spatial_mesh is not yet ported for --%s %s (ported: %s)'
+                % (flag, which, ', '.join(SPATIAL_NETS[net[0]])))
+
+
 def check_flags(opt):
     """Raise for a parallel flag set the training entry points cannot run:
-    --batchSize not divisible by --data_mesh, or a --dcn_* set whose
-    process count does not divide --data_mesh."""
+    --batchSize not divisible by --data_mesh, a --dcn_* set whose process
+    count does not divide the grid's workers, or --spatial_mesh on a recipe
+    it is not yet ported for."""
     n, p = opt.data_mesh, opt.dcn_num_processes
+    check_spatial(opt)
     if n > 1 and opt.batchSize % n:
         raise ValueError('--batchSize %d is not divisible by --data_mesh %d: '
                          'each worker takes an equal share of the batch'
                          % (opt.batchSize, n))
     if p > 1:
-        if n < p or n % p:
-            raise ValueError('--data_mesh %d must be a multiple of '
-                             '--dcn_num_processes %d, at least one worker a '
-                             'process' % (n, p))
+        w = workers(opt)
+        if w < p or w % p:
+            if grid(opt)[1] == 1:
+                raise ValueError('--data_mesh %d must be a multiple of '
+                                 '--dcn_num_processes %d, at least one worker '
+                                 'a process' % (n, p))
+            raise ValueError('--data_mesh x --spatial_mesh, %d workers, must '
+                             'be a multiple of --dcn_num_processes %d, at '
+                             'least one worker a process' % (w, p))
         if not opt.dcn_coordinator:
             raise ValueError('--dcn_num_processes %d needs '
                              '--dcn_coordinator host:port' % p)
@@ -75,8 +142,9 @@ def check_flags(opt):
 
 
 def sharded(opt):
-    """Whether the options ask for a data-parallel run (--data_mesh > 1)."""
-    return opt.data_mesh > 1
+    """Whether the options ask for a parallel run (--data_mesh or
+    --spatial_mesh > 1)."""
+    return workers(opt) > 1
 
 
 def free_port():
@@ -86,8 +154,8 @@ def free_port():
 
 
 def local_workers(opt):
-    """The workers this process starts: --data_mesh / --dcn_num_processes."""
-    return opt.data_mesh // max(opt.dcn_num_processes, 1)
+    """The workers this process starts: the grid's / --dcn_num_processes."""
+    return workers(opt) // max(opt.dcn_num_processes, 1)
 
 
 def check_cards(opt):
@@ -97,15 +165,18 @@ def check_cards(opt):
         return
     n, cards = local_workers(opt), torch.cuda.device_count()
     if cards < n:
+        flags = ('--data_mesh %d' % opt.data_mesh if grid(opt)[1] == 1 else
+                 '--data_mesh %d --spatial_mesh %d'
+                 % (opt.data_mesh, opt.spatial_mesh))
         raise RuntimeError(
-            '--data_mesh %d starts %d workers on this machine, one a CUDA '
-            'card, but it has %d cards: fewer cards than workers (pass '
-            '--gpu_ids -1 to run them on the CPU)' % (opt.data_mesh, n, cards))
+            '%s starts %d workers on this machine, one a CUDA card, but it '
+            'has %d cards: fewer cards than workers (pass --gpu_ids -1 to run '
+            'them on the CPU)' % (flags, n, cards))
 
 
 def launch(fn, opt, args=(), join_timeout=None, timeout_s=TIMEOUT_S):
-    """Run ``fn(opt, *args)`` data-parallel: spawn this process's workers
-    (``local_workers``), each in a process group of --data_mesh ranks, and
+    """Run ``fn(opt, *args)`` in parallel: spawn this process's workers
+    (``local_workers``), each in a process group of the grid's ranks, and
     return the first local worker's result.  An exception in any worker
     raises here, as does a join that outlasts ``join_timeout`` seconds
     (then every worker is killed)."""
@@ -155,8 +226,8 @@ def _worker(i, fn, opt, args, coordinator, base, results, timeout_s):
             # the workers share the host's cores
             torch.set_num_threads(max(1, (os.cpu_count() or 1)
                                       // local_workers(opt)))
-    init_distributed(coordinator, opt.data_mesh, base + i, device=device,
-                     timeout_s=timeout_s)
+    init_distributed(coordinator, workers(opt), base + i, device=device,
+                     timeout_s=timeout_s, n_sp=grid(opt)[1])
     try:
         # every rank takes rank 0's seed: the loaders' streams and the
         # generators must agree
@@ -170,13 +241,18 @@ def _worker(i, fn, opt, args, coordinator, base, results, timeout_s):
 
 # ------------------------------------------------------ the process group -- #
 def init_distributed(coordinator, num_processes, process_id, backend=None,
-                     device=None, timeout_s=TIMEOUT_S):
+                     device=None, timeout_s=TIMEOUT_S, n_sp=1):
     """Join the process group of ``num_processes`` ranks that meets at
     ``tcp://<coordinator>`` (host:port) as rank ``process_id``, working on
-    ``device`` (the CPU by default).  ``backend``: NCCL for a CUDA device,
+    ``device`` (the CPU by default), in a grid of ``num_processes / n_sp``
+    data rows of ``n_sp`` sp ranks.  ``backend``: NCCL for a CUDA device,
     gloo for the CPU, unless given (two gloo ranks can share one card,
     which NCCL refuses)."""
     global _group
+    world, rank, n_sp = int(num_processes), int(process_id), int(n_sp)
+    if n_sp < 1 or world % n_sp:
+        raise ValueError('%d ranks do not form rows of %d sp ranks'
+                         % (world, n_sp))
     device = torch.device('cpu' if device is None else device)
     if backend is None:
         backend = 'nccl' if device.type == 'cuda' else 'gloo'
@@ -186,13 +262,36 @@ def init_distributed(coordinator, num_processes, process_id, backend=None,
         backend, init_method='tcp://%s' % coordinator,
         world_size=int(num_processes), rank=int(process_id),
         timeout=datetime.timedelta(seconds=timeout_s))
-    _group = {'rank': int(process_id), 'world': int(num_processes),
-              'backend': backend, 'device': device}
+    n_data = world // n_sp
+    data_group = sp_group = None
+    sp_ranks = [rank]
+    if n_sp > 1:
+        # every rank makes every group, in one order
+        for d in range(n_data):
+            ranks = list(range(d * n_sp, (d + 1) * n_sp))
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                sp_group, sp_ranks = g, ranks
+        for s in range(n_sp):
+            ranks = list(range(s, world, n_sp))
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                data_group = g
+    _group = {'rank': rank, 'world': world, 'backend': backend,
+              'device': device, 'n_data': n_data, 'n_sp': n_sp,
+              'data': rank // n_sp, 'sp': rank % n_sp,
+              'data_group': data_group, 'sp_group': sp_group,
+              'sp_ranks': sp_ranks}
+    if n_sp > 1:
+        from . import spatial
+        spatial.enter()
 
 
 def shutdown():
     """Leave the process group (a no-op outside one)."""
     global _group
+    from . import spatial
+    spatial.leave()
     if dist.is_initialized():
         dist.destroy_process_group()
     _group = None
@@ -205,11 +304,13 @@ def active():
 
 
 def world():
-    return _group['world'] if active() else 1
+    """Ranks of the data group (the batch split): 1 outside a group."""
+    return _group['n_data'] if active() else 1
 
 
 def rank():
-    return _group['rank'] if active() else 0
+    """This rank's index in its data group."""
+    return _group['data'] if active() else 0
 
 
 def is_main():
@@ -261,14 +362,27 @@ def _staged(t):
     return _group['backend'] == 'gloo' and t.is_cuda
 
 
-def _all_reduce_sum_(t):
+def all_reduce_sum_in_(t, group):
+    """Sum ``t`` in place over ``group`` (None: every rank)."""
     if _staged(t):
         host = t.cpu()
-        dist.all_reduce(host)
+        dist.all_reduce(host, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
+
+
+def _all_reduce_sum_(t):
+    """Sum ``t`` in place over every rank of the grid."""
+    return all_reduce_sum_in_(t, None)
+
+
+def _data_reduce_sum_(t):
+    """Sum ``t`` in place over the data group."""
+    if _group['n_sp'] == 1:
+        return _all_reduce_sum_(t)
+    return all_reduce_sum_in_(t, _group['data_group'])
 
 
 def gather_rows(t):
@@ -277,28 +391,29 @@ def gather_rows(t):
         return t
     part = t.cpu() if _staged(t) else t.contiguous()
     parts = [torch.empty_like(part) for _ in range(world())]
-    dist.all_gather(parts, part)
+    dist.all_gather(parts, part, group=_group['data_group'])
     return torch.cat(parts).to(t.device)
 
 
 class _MeanAllReduce(torch.autograd.Function):
-    """The mean over ranks; its backward is the mean of the cotangents, so
-    each rank's gradient takes every rank's use of the mean."""
+    """The mean over the data group; its backward is the mean of the
+    cotangents, so each rank's gradient takes every rank's use of the
+    mean."""
 
     @staticmethod
     def forward(ctx, t):
-        return _all_reduce_sum_(
+        return _data_reduce_sum_(
             t.clone(memory_format=torch.contiguous_format)).div_(world())
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce_sum_(
+        return _data_reduce_sum_(
             g.clone(memory_format=torch.contiguous_format)).div_(world())
 
 
 def mean_all_reduce(t):
-    """The mean of ``t`` over ranks, differentiable (the identity outside a
-    group)."""
+    """The mean of ``t`` over the data group, differentiable (the identity
+    outside a group)."""
     if not active():
         return t
     return _MeanAllReduce.apply(t)
@@ -309,8 +424,8 @@ def _comm_device():
 
 
 def mean_values(values):
-    """A dict of floats averaged over ranks (the identity outside a group):
-    the printed losses."""
+    """A dict of floats summed over the sp group and averaged over the data
+    group (the identity outside a group): the printed losses."""
     if not active() or not values:
         return values
     t = torch.tensor([float(v) for v in values.values()], dtype=torch.float64,
@@ -360,8 +475,10 @@ def broadcast_modules(modules):
 
 def average_gradients(optimizer):
     """Register a step pre-hook on ``optimizer`` that replaces each
-    parameter group's gradients by their mean over ranks (one flat
-    all-reduce a group), so every rank takes the global batch's step."""
+    parameter group's gradients by their sum over the grid divided by the
+    data group's size (one flat all-reduce a group): the mean over ranks
+    without --spatial_mesh, the sp shares summed and the data rows averaged
+    with it; so every rank takes the global batch's step."""
     if not active():
         return
 

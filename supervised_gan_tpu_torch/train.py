@@ -35,6 +35,13 @@ one-process run's steps.  Rank 0 alone writes the checkpoints, the full
 state, loss_log.txt and the web page (the others wait at a barrier after
 each save); the printed losses are the ranks' mean; only rank 0 profiles.
 A machine with fewer cards than workers raises.
+
+--spatial_mesh S (> 1) splits every image's height over S ranks
+(parallel/spatial.py; fcgan, cgan and twostage_cycle), alone or in a
+grid with --data_mesh N (N x S workers, the sp index the minor one): the
+printed losses are summed over each row of S ranks and averaged over the
+N rows, the displayed visuals and the checkpointed pools are gathered
+from the S ranks, and the steps run one by one (no captured graph).
 """
 
 import random
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from . import parallel
+from .parallel import spatial
 from .data import CreateDataLoader
 from .models import create_model
 from .models.base import disable_tf32
@@ -139,9 +147,12 @@ def run(opt):
                 trace = None
                 print('profiler trace written to %s' % opt.profile_dir)
 
-            if total_steps % opt.display_freq == 0 and main_rank:
-                visualizer.display_current_results(
-                    model.get_current_visuals(), epoch)
+            if total_steps % opt.display_freq == 0 and (
+                    main_rank or spatial.active()):
+                # under --spatial_mesh every rank gathers the visuals' rows
+                visuals = model.get_current_visuals()
+                if main_rank:
+                    visualizer.display_current_results(visuals, epoch)
 
             if total_steps % opt.print_freq == 0:
                 errors = parallel.mean_values(model.get_current_errors())
@@ -189,9 +200,11 @@ def run(opt):
 
 
 def save(model, label):
-    """model.save(label) on rank 0; every rank waits until it is written."""
-    if parallel.is_main():
-        model.save(label)
+    """model.save(label) on rank 0, the pools whole; every rank waits until
+    it is written."""
+    with spatial.whole_pools(getattr(model, 'pools', {})):
+        if parallel.is_main():
+            model.save(label)
     parallel.barrier()
 
 

@@ -52,6 +52,7 @@ def main(args=None):
 
     if opt_train.manualSeed is None:
         opt_train.manualSeed = random.randint(1, 10000)
+    parallel.check_spatial(opt_train, 'train_ss')
     parallel.check_flags(opt_train)
     if parallel.sharded(opt_train):
         return parallel.launch(run, opt_train, (opt_val,))
