@@ -297,10 +297,25 @@ comparison is float32 against float32.
      entries), the ranks' states bitwise equal, the losses and every
      parameter, Adam moment and pool (gathered whole) within dm_limits of
      SP_SPREAD_FLOOR; each rank's ms a step and its halo exchanges',
-     all-reduces' and all-gathers' ms, on the card line;
+     all-reduces' and all-gathers' ms, on the card line; conv3x3_in's
+     row-range entry (conv3x3_in_partial_stats) at a rank's window of the
+     region's 512^2 64 -> 64 plane, (1, 64, 258, 512) with rows [1, 257)
+     admitted, f32 and bf16 against its plain version, two runs bitwise
+     identical, constant planes exact through stats_from_sums, device times
+     and bounds (phase_row_range); then the other recipes under
+     --spatial_mesh 2 (SPR_RUNS, one spawn of two gloo ranks sharing
+     cuda:0 against one process): train_ss at the gate's 512 px
+     configuration (2 steps and the validation pass, f32), the DSGAN step
+     with the fused region's gate on (512 px, bf16, one step: the region
+     over split rows), one f32 step each of twostage_factd, cgan_cycle and
+     Z3; each rank's launches spr_expected's (the one-process run's, its
+     split IN planes and regions on the row-split entries), the ranks
+     bitwise equal, the losses within 1e-3 relative of one process, the
+     state within dm_limits of its SPR_SPREAD_FLOOR;
  23. a JSON line of per-kernel results (launches: the DSGAN train step's;
-     the row-split IN entries': phase 22's sharded step's), the card line,
-     and the last line {"ok": true, "device": {...}}.
+     the row-split IN entries': phase 22's sharded step's; the row-range
+     entry's: the gated DSGAN run's rank 0), the card line, and the last
+     line {"ok": true, "device": {...}}.
 
 Every torch.profiler trace opens with spin kernels that take the records
 the profiler loses at its start (see traced), and must hold a device
@@ -633,6 +648,9 @@ KERNEL_INFO = {
     'instance_norm_bwd_apply': dict(
         source='supervised_gan_tpu_torch/csrc/instance_norm.cu',
         replaces='supervised_gan_tpu/ops/pallas/instance_norm.py:337'),
+    'conv3x3_in_partial_stats': dict(
+        source='supervised_gan_tpu_torch/csrc/conv3x3_in.cu',
+        replaces='supervised_gan_tpu/ops/pallas/conv3x3_in.py:65'),
 }
 
 
@@ -3648,9 +3666,13 @@ def _ts_model(path):
 def ts_reference_step(path):
     """One f32 iteration of a path at 512 px, card (kernels) vs CPU (plain
     versions), as phase_reference_step holds the DSGAN's: losses 1e-3,
-    gradients within max(5e-2, 2 x floor) in L2; no pool, no dropout."""
-    flags = _without(path_args(path, TS_NAME + '_ref', 'float32', 1),
-                     '--gpu_ids')
+    gradients within max(5e-2, 2 x floor) in L2; no pool, no dropout.  G2
+    and the D2 bank at ngf2 / ndf2 16, as the cgan family's CPU steps are
+    cut (G1 and D1 keep stage 1's widths, which the README command loads):
+    on an H100 machine's host the CPU side of a full-width CRN step took
+    13-27 s, twice a path with its noise floor."""
+    flags = _with(_without(path_args(path, TS_NAME + '_ref', 'float32', 1),
+                           '--gpu_ids'), ngf2='16', ndf2='16')
     return _reference_step((), '_%s' % path, 'float32', loss_tol=1e-3,
                            grad_tol=5e-2, floor_factor=2, card_flags=[],
                            recipe=Recipe(flags, '%s_%s' % (TS_NAME, path),
@@ -4908,16 +4930,13 @@ def sp_per_step(books):
     others the one-launch kernels.  ``books``: the one-process step's
     recorded IN sites."""
     split_h = 2 * parallel.spatial.MIN_ROWS
-    f = sum(c for (xs, _), c in books['InstanceNormAct'].items()
-            if xs[2] >= split_h)
-    b = sum(c for (xs, _), c in books['instance_norm_bwd'].items()
-            if xs[2] >= split_h)
-    per = dict(LAUNCHES_PER_STEP)
-    per.update(instance_norm_act=per['instance_norm_act'] - f,
-               instance_norm_bwd=per['instance_norm_bwd'] - b,
-               instance_norm_partial_stats=f, instance_norm_apply=f,
-               instance_norm_bwd_partial_stats=b, instance_norm_bwd_apply=b)
-    return per
+    split = {'in_fwd': sum(c for (xs, _), c in books['InstanceNormAct'].items()
+                           if xs[2] >= split_h),
+             'in_bwd': sum(c for (xs, _), c
+                           in books['instance_norm_bwd'].items()
+                           if xs[2] >= split_h)}
+    return {k: v for k, v in spr_expected(expected(LAUNCHES_PER_STEP, 1),
+                                          split).items() if v}
 
 
 def spatial_in_cases():
@@ -4977,10 +4996,91 @@ def spatial_in_cases():
              to16)]
 
 
+# the row-range entry of conv3x3_in's site: a rank's half of the region's
+# 512^2 64 -> 64 plane with a halo row above and below, its 256 own rows
+# admitted
+SP_WINDOW = (1, 64, 258, 512)
+SP_WINDOW_ROWS = (1, 257)
+
+
+def phase_row_range():
+    """conv3x3_in_partial_stats at SP_WINDOW, rows SP_WINDOW_ROWS, f32 and
+    bf16, against its plain version (y within 1e-4 / 2e-2, the sums within
+    1e-4 of the largest), two runs bitwise equal, device times (CUDA-graph
+    replays); then on constant planes (w = 0, y = b with biases of a few
+    bits, whose sums are exact): stats_from_sums gives mean = b and rstd =
+    1 / sqrt(eps) bit for bit.  Returns (the site's record, the kernel's
+    sums for the kernels line)."""
+    gen = torch.Generator(device=DEV).manual_seed(78)
+    x = randn(SP_WINDOW, gen)
+    w = randn((64, 64, 3, 3), gen, (9 * 64) ** -0.5)
+    b = randn((64,), gen, 0.1)
+    r0, r1 = SP_WINDOW_ROWS
+    rec = {}
+    for tag, dt, tol in (('f32', torch.float32, 1e-4),
+                         ('bf16', torch.bfloat16, 2e-2)):
+        args = (x.to(dt), w.to(dt), b.to(dt), r0, r1)
+        y, sums = K.conv3x3_in_partial_stats(*args)
+        y2, sums2 = K.conv3x3_in_partial_stats(*args)
+        yp, sp_ = K.conv3x3_in_partial_stats_plain(*args)
+        torch.cuda.synchronize()
+        check(y.shape == yp.shape == (1, 64, r1 - r0, SP_WINDOW[3])
+              and y.dtype == dt and sums.shape == sp_.shape == (1, 64, 2)
+              and bool(torch.isfinite(y).all()),
+              'conv3x3_in_partial_stats %s: bad output' % tag)
+        check(torch.equal(y, y2) and torch.equal(sums, sums2),
+              'conv3x3_in_partial_stats %s: two runs differ' % tag)
+        check(within(y, yp, tol) and within_sum(sums, sp_, 1e-4),
+              'conv3x3_in_partial_stats %s: y off by %.3g, sums by %.3g'
+              % (tag, err(y, yp), err(sums, sp_)))
+        rec[tag] = dict(err_y=err(y, yp), err_sums=err(sums, sp_),
+                        ms=device_ms(lambda: K.conv3x3_in_partial_stats(
+                            *args)),
+                        plain_ms=device_ms(
+                            lambda: K.conv3x3_in_partial_stats_plain(*args)))
+    n_out = 64.0 * (r1 - r0) * SP_WINDOW[3]
+    n_in = 64.0 * SP_WINDOW[2] * SP_WINDOW[3]
+    flops = 2.0 * 9 * 64 * n_out + 3.0 * n_out
+    nbytes = 4.0 * (n_in + n_out + 64 * 64 * 9 + 64 + 2 * 64)
+    nbytes16 = 2.0 * (n_in + n_out + 64 * 64 * 9) + 4.0 * (64 + 2 * 64)
+    b_ms, b_by = bound_ms(flops, nbytes, PEAK_TF32X3_FLOPS)
+    b16_ms, b16_by = bound_ms(flops, nbytes16, PEAK_BF16_FLOPS)
+    rstd_eps = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(1e-5)))
+    bc = torch.tensor([0.75, -1.5, 3.125, 0.0, -0.25, 12.5], device=DEV)
+    for dt in (torch.float32, torch.bfloat16):
+        xc = randn((2, 8, 23, 19), gen).to(dt)
+        _, sums = K.conv3x3_in_partial_stats(
+            xc, torch.zeros(6, 8, 3, 3, device=DEV, dtype=dt), bc, 1, 22)
+        m, r = CIN_MODULE.stats_from_sums(sums, 21 * 19)
+        torch.cuda.synchronize()
+        check(torch.equal(m, bc.expand(2, 6)) and bool((r == rstd_eps).all()),
+              'conv3x3_in_partial_stats constant planes %s: mean %s, rstd '
+              '%s' % (dt, m.tolist(), r.tolist()))
+    print('  conv3x3_in_partial_stats %s rows [%d, %d): err f32 y %.2e sums '
+          '%.2e, bf16 y %.2e sums %.2e; two runs identical | kernel %.4f ms '
+          '(bf16 %.4f) plain %.4f library none bound %.4f (%s; bf16 %.4f, '
+          '%s); constant planes: mean = b, rstd = 1 / sqrt(eps) exactly'
+          % (SP_WINDOW, r0, r1, rec['f32']['err_y'], rec['f32']['err_sums'],
+             rec['bf16']['err_y'], rec['bf16']['err_sums'], rec['f32']['ms'],
+             rec['bf16']['ms'], rec['f32']['plain_ms'], b_ms, b_by, b16_ms,
+             b16_by))
+    rec.update(site='%s rows [%d, %d)' % (SP_WINDOW, r0, r1),
+               bound_ms=b_ms, bound_by=b_by, bound_ms_bf16=b16_ms,
+               bound_by_bf16=b16_by, flops=flops, bytes=nbytes,
+               bytes16=nbytes16)
+    agg = dict(max_abs_err=max(rec['f32']['err_y'], rec['f32']['err_sums']),
+               ms=rec['f32']['ms'], ms_bf16=rec['bf16']['ms'],
+               plain_ms=rec['f32']['plain_ms'], library_ms=None,
+               library_ms_bf16=None, bound_ms=b_ms, bound_by=b_by,
+               bound_ms_bf16=b16_ms, sites=1)
+    return rec, agg
+
+
 def phase_spatial_in():
     """The row-split IN entries vs their plain versions (run_cases: f32 and
     bf16, device times), then each kernel twice on one input, f32 and
-    bf16: the two results bitwise equal."""
+    bf16: the two results bitwise equal; then conv3x3_in's row-range entry
+    (phase_row_range)."""
     cases = spatial_in_cases()
     per_site, agg = run_cases(cases)
     gen = torch.Generator(device=DEV).manual_seed(77)
@@ -4992,6 +5092,8 @@ def phase_spatial_in():
             check(torch.equal(y1, y2), '%s: two runs differ' % c.kernel)
     print('  %s: two runs of one launch bitwise equal, f32 and bf16'
           % ', '.join(c.kernel for c in cases))
+    rec, agg['conv3x3_in_partial_stats'] = phase_row_range()
+    per_site.append(dict(rec, kernel='conv3x3_in_partial_stats'))
     return per_site, agg
 
 
@@ -5219,6 +5321,336 @@ def phase_spatial_mesh(books):
                 one_step_ms=[o['ms'] for o in ones], last_step_shares=shares,
                 collectives=ranks[0]['collectives'], per_step=per,
                 launches=ranks[0]['counts'])
+
+
+# ------------------------------ the other recipes under --spatial_mesh -- #
+# Each run (SPR_RUNS) one process against two gloo sp ranks sharing cuda:0
+# (one spawn for all of them): the segmentation gate's train_ss at full
+# width (tools/quality_eval.py:94-104, SEG_ARCH, f32, 2 steps and the
+# validation pass), the DSGAN step with the fused region's gate on (bench
+# configuration, 512 px, bf16, one step: the region over split rows on both
+# ranks), and one f32 step each of twostage_factd (bench configuration),
+# cgan_cycle (its smoke command) and Z3 (the dcgan pair, 128 px).  Each
+# rank's launches are the one-process run's with its IN planes of 16 rows
+# or more, and the region's, moved to the row-split entries (spr_expected,
+# rehearsed on the CPU); the ranks bitwise equal; the losses within 1e-3
+# relative of one process; the state within dm_limits of SPR_SPREAD_FLOOR,
+# measured a run by scripts/data_mesh_spread.py --spatial_mesh --recipes.
+SPR_NAME = 'chip_smoke_spr'
+SPR_JOIN_TIMEOUT = 600
+SPR_LOSS_TOL = 1e-3
+SprRun = collections.namedtuple('SprRun', 'flags px steps gate noise')
+SPR_RUNS = collections.OrderedDict([
+    ('segmentation', SprRun(
+        SEG_ARCH + SEG_TRAIN + ['--niter', '1', '--niter_decay', '0',
+                                '--print_freq', '1', '--display_freq', '100',
+                                '--save_epoch_freq', '1',
+                                '--max_dataset_size', '2'],
+        512, 2, False, ())),
+    ('dsgan_gated', SprRun(TRAIN_FLAGS + ['--compute_dtype', 'bfloat16'],
+                           512, 1, True, REGION_BIASES)),
+    ('twostage_factd', SprRun(TRAIN_FLAGS + ['--model', 'twostage_factd',
+                                             '--compute_dtype', 'float32'],
+                              512, 1, False, ())),
+    ('cgan_cycle', SprRun(family_args('cgan_cycle')
+                          + ['--compute_dtype', 'float32'], 512, 1, False,
+                          ())),
+    ('z3_dcgan', SprRun(ZOO['z3_dcgan'].flags
+                        + ['--compute_dtype', 'float32'], 128, 1, False,
+                        ()))])
+# the sharded runs' distance from one process that dm_limits floors (twice
+# these): the largest of 2 rounds of scripts/data_mesh_spread.py
+# --spatial_mesh --recipes on an H100, rounded up (PERF.md); one
+# process's pairs stay 10-1000x below them
+SPR_SPREAD_FLOOR = {
+    'segmentation': {'whole': 8.6e-4, 'worst': 0.106, 'loss': 2.2e-7},
+    'dsgan_gated': {'whole': 2.7e-3, 'worst': 0.64, 'loss': 5.0e-4},
+    'twostage_factd': {'whole': 7.7e-5, 'worst': 0.177, 'loss': 2.5e-6},
+    'cgan_cycle': {'whole': 8.7e-5, 'worst': 0.088, 'loss': 7.5e-7},
+    'z3_dcgan': {'whole': 2.91e-3, 'worst': 4.2e-3, 'loss': 1.3e-5}}
+
+
+def _spr_state(model):
+    """_model_state with Adam's moments keyed by their parameter's name
+    (adam.<optimizer>.<net>.<parameter>.<moment>) and the pools whole."""
+    names = {id(p): '%s.%s' % (label, n) for label, net in
+             model.nets().items() for n, p in net.named_parameters()}
+    out = {}
+    with parallel.spatial.whole_pools(model.pools):
+        for label, net in model.nets().items():
+            for k, v in net.state_dict().items():
+                out['%s.%s' % (label, k)] = v.detach().float().cpu()
+        for label, opt in model.optimizers().items():
+            for p, st in opt.state.items():
+                for k, v in st.items():
+                    out['adam.%s.%s.%s' % (label, names[id(p)], k)] = (
+                        v.detach().float().cpu())
+        for label, p in model.pools.items():
+            if p is not None:
+                out['pool.%s' % label] = p['images'].detach().float().cpu()
+    return out, parallel.mean_values(model.get_current_errors())
+
+
+@contextlib.contextmanager
+def _split_book(book, inside):
+    """Count, in ``book``, the IN and region calls made while ``inside`` is
+    not empty (a train step) whose plane has at least 2 x spatial.MIN_ROWS
+    rows: the ones a --spatial_mesh 2 rank runs on the row-split entries
+    ('in_fwd', 'in_bwd' (the region's backward too), 'region')."""
+    split_h = 2 * parallel.spatial.MIN_ROWS
+    saved = (ops_norm.InstanceNormAct, functions.instance_norm_bwd,
+             functions.conv3x3_in_stats)
+
+    def mark(kind, x):
+        if inside and x.shape[2] >= split_h:
+            book[kind] += 1
+
+    class INAct:
+        @staticmethod
+        def apply(x, eps, slope):
+            mark('in_fwd', x)
+            return saved[0].apply(x, eps, slope)
+
+    def bwd(x, *a, **kw):
+        mark('in_bwd', x)
+        return saved[1](x, *a, **kw)
+
+    def region(x, *a, **kw):
+        mark('region', x)
+        return saved[2](x, *a, **kw)
+    ops_norm.InstanceNormAct = INAct
+    functions.instance_norm_bwd, functions.conv3x3_in_stats = bwd, region
+    try:
+        yield
+    finally:
+        (ops_norm.InstanceNormAct, functions.instance_norm_bwd,
+         functions.conv3x3_in_stats) = saved
+
+
+def spr_expected(counts, book):
+    """A --spatial_mesh 2 rank's launches from the one-process run's
+    ``counts`` and its split planes (``book``, _split_book): each split IN
+    forward partial_stats + apply, each split backward bwd_partial_stats +
+    bwd_apply, each split region the row-range entry (its apply as
+    before); every other site as one process."""
+    out = dict(counts)
+    f, b, r = (book.get(k, 0) for k in ('in_fwd', 'in_bwd', 'region'))
+    out['instance_norm_act'] -= f
+    out['instance_norm_partial_stats'] += f
+    out['instance_norm_apply'] += f
+    out['instance_norm_bwd'] -= b
+    out['instance_norm_bwd_partial_stats'] += b
+    out['instance_norm_bwd_apply'] += b
+    out['conv3x3_in_stats'] -= r
+    out['conv3x3_in_partial_stats'] += r
+    return out
+
+
+def _spr_run(name, label, sharded):
+    """One run of SPR_RUNS[name] on this process's device (in its sp group
+    when ``sharded``): launch counts set to 0 just before and read just
+    after, each step's wall ms to a synchronize, the state and losses
+    (_spr_state), the split book (one process), the val accuracies
+    (segmentation)."""
+    run = SPR_RUNS[name]
+    flags = (run.flags + ON_CARD + ['--name', '%s_%s_%s'
+                                    % (SPR_NAME, name, label)]
+             + (['--spatial_mesh', '2'] if sharded else []))
+    book, inside, models, ms = collections.Counter(), [], [], []
+
+    def track(model):
+        step = model.optimize_parameters
+
+        def tracked():
+            inside.append(True)
+            t0 = time.perf_counter()
+            try:
+                step()
+                torch.cuda.synchronize()
+            finally:
+                inside.pop()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        model.optimize_parameters = tracked
+        models.append(model)
+        return model
+    accs = None
+    with region_gate(run.gate), _split_book(book, inside):
+        K.reset_launch_counts()
+        if name == 'segmentation':
+            create = train_ss.create_model
+            train_ss.create_model = lambda opt: track(create(opt))
+            try:
+                r = train_ss.run(TrainOptions().parse(flags),
+                                 TrainOptions().parse(flags))
+            finally:
+                train_ss.create_model = create
+            accs = r['val_accs'][0]
+        else:
+            model = track(create_model(TrainOptions().parse(flags)))
+            for s_ in range(run.steps):
+                model.set_input(fixed_batch(px=run.px, seed=60 + s_))
+                model.optimize_parameters()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+    state, losses = _spr_state(models[0])
+    out = dict(ms=ms, counts=counts, book=dict(book), state=state,
+               losses=losses, accs=accs)
+    del models[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spr_rank(rank, port, out, names):
+    """One of two gloo sp ranks sharing cuda:0 (spawned): each run of
+    ``names`` sharded, written to ``out``/spr_<name>_rank<rank>.pt."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    parallel.init_distributed('127.0.0.1:%d' % port, 2, rank,
+                              backend='gloo', device=DEV,
+                              timeout_s=SPR_JOIN_TIMEOUT, n_sp=2)
+    try:
+        for name in names:
+            parallel.spatial.COUNTS.clear()
+            r = _spr_run(name, 'rank%d' % rank, True)
+            r['collectives'] = dict(parallel.spatial.COUNTS)
+            torch.save(r, os.path.join(out, 'spr_%s_rank%d.pt'
+                                       % (name, rank)))
+    finally:
+        parallel.shutdown()
+
+
+def spr_sharded_runs(names):
+    """Two gloo sp ranks on cuda:0 running each of ``names``: {name: [rank
+    0's result, rank 1's]}."""
+    port = parallel.mesh.free_port()
+    ctx = torch.multiprocessing.start_processes(
+        _spr_rank, args=(port, RESULTS_DIR, list(names)), nprocs=2,
+        join=False, start_method='spawn')
+    deadline = time.time() + SPR_JOIN_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.time() < deadline, 'the spatial-mesh recipe ranks did '
+                  'not end within %d s' % SPR_JOIN_TIMEOUT)
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    return {name: [torch.load(os.path.join(RESULTS_DIR, 'spr_%s_rank%d.pt'
+                                           % (name, r)), weights_only=True)
+                   for r in range(2)] for name in names}
+
+
+def _without_keys(r, keys):
+    """(state, losses) of a _spr_run result without the tensors of
+    ``keys`` (a parameter and its Adam moments, by name)."""
+    return ({k: v for k, v in r['state'].items()
+             if not any(k == n or k.startswith('adam.') and k.split('.', 2)[2]
+                        .rsplit('.', 1)[0] == n for n in keys)},
+            r['losses'])
+
+
+def _spr_diff(a, b):
+    """_state_diff of two _spr_run results (``a`` the reference), its worst
+    tensor taken over the tensors of ``a`` that are not all zero: a
+    gradient that cancels to exactly 0 in one process (the bf16 D heads'
+    bias, whose real and fake cotangents sum to zero once the sigmoid
+    rounds to 1/2) is rounding on the other side, where no relative
+    distance is defined; the whole state's distance holds them."""
+    d = _state_diff(a, b)
+    nz = [k for k, v in a[0].items() if bool(v.any())]
+    w = _state_diff(({k: a[0][k] for k in nz}, a[1]),
+                    ({k: b[0][k] for k in nz}, b[1]))
+    d.update(worst=w['worst'], name=w['name'],
+             zero_reference=len(a[0]) - len(nz))
+    return d
+
+
+def spr_compare(names=tuple(SPR_RUNS), n_one=1):
+    """``n_one`` one-process runs of each of ``names``, then one sharded
+    run of all of them: {name: (ones, ranks, pairs, sharded)}, the
+    distances without the run's rounding-noise tensors (SprRun.noise: the
+    region's bias, which the norm removes)."""
+    ones = {name: [_spr_run(name, 'one%d' % i, False) for i in range(n_one)]
+            for name in names}
+    ranks = spr_sharded_runs(names)
+    out = {}
+    for name in names:
+        noise = SPR_RUNS[name].noise
+        o, rk = ones[name], ranks[name]
+        pairs = {'one%d-one%d' % (i, j): _spr_diff(
+            _without_keys(o[i], noise), _without_keys(o[j], noise))
+            for i in range(n_one) for j in range(i + 1, n_one)}
+        sharded = {'rank0-one%d' % i: _spr_diff(
+            _without_keys(x, noise), _without_keys(rk[0], noise))
+            for i, x in enumerate(o)}
+        out[name] = (o, rk, pairs, sharded)
+    return out
+
+
+def phase_spatial_recipes():
+    """Every SPR_RUNS run, one process against two gloo sp ranks on cuda:0:
+    each rank's launches spr_expected's (the row-range entry among them in
+    the gated run), the ranks' states bitwise equal, the losses within
+    SPR_LOSS_TOL relative of one process, the state within dm_limits of its
+    SPR_SPREAD_FLOOR; the segmentation run's val accuracies beside one
+    process's; each rank's ms a step."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = spr_compare()
+    out = {}
+    for name, (ones, ranks, pairs, sharded) in res.items():
+        one = ones[0]
+        want = spr_expected(one['counts'], one['book'])
+        for rank, r in enumerate(ranks):
+            check(r['counts'] == want, '%s --spatial_mesh rank %d: launches '
+                  '%s, expected %s (one process %s, split %s)'
+                  % (name, rank, r['counts'], want, one['counts'],
+                     one['book']))
+            d = _state_diff((ranks[0]['state'], ranks[0]['losses']),
+                            (r['state'], r['losses']))
+            check(d['differ'] == 0 and not any(d['losses'].values())
+                  and r['accs'] == ranks[0]['accs'],
+                  '%s --spatial_mesh rank %d: %d tensors differ from rank 0 '
+                  '(%s), losses %s' % (name, rank, d['differ'], d['name'],
+                                       d['losses']))
+        if SPR_RUNS[name].gate:
+            check(want['conv3x3_in_partial_stats'] > 0
+                  and want['conv3x3_in_stats'] == 0,
+                  '%s: the region did not run over split rows: %s'
+                  % (name, want))
+        loss_rel = {k: abs(ranks[0]['losses'][k] - v) / max(abs(v), 1e-30)
+                    for k, v in one['losses'].items()}
+        limits = dm_limits(pairs, one['losses'],
+                           floor=SPR_SPREAD_FLOOR[name])
+        over = {n: _over_limits(d, limits) for n, d in sharded.items()}
+        for n, d in sharded.items():
+            print('  %s %s: whole %.3g, worst %.3g (%s), losses rel %s'
+                  % (name, n, d['whole'], d['worst'], d['name'],
+                     {k: '%.2e' % v for k, v in loss_rel.items()}))
+        check(all(v <= SPR_LOSS_TOL for v in loss_rel.values()),
+              '%s: sharded losses %s, one process %s' % (
+                  name, ranks[0]['losses'], one['losses']))
+        check(not any(over.values()), '%s --spatial_mesh beyond the limits '
+              '%s: %s' % (name, limits, over))
+        if one['accs'] is not None:
+            print('  %s val accuracies: sharded %s, one process %s'
+                  % (name, ranks[0]['accs'], one['accs']))
+        print('  %s: a rank %s ms a step (rank 0), one process %s; '
+              'launches a rank %s' % (
+                  name, ['%.1f' % m for m in ranks[0]['ms']],
+                  ['%.1f' % m for m in one['ms']],
+                  {k: v for k, v in want.items() if v}))
+        out[name] = dict(launches=ranks[0]['counts'], expected=want,
+                         split=one['book'], sharded=sharded,
+                         limits=limits, loss_rel=loss_rel,
+                         rank_step_ms=[r['ms'] for r in ranks],
+                         one_step_ms=one['ms'], accs=ranks[0]['accs'],
+                         one_accs=one['accs'],
+                         collectives=ranks[0]['collectives'])
+    print('spatial mesh, the other recipes, on %s' % card_line())
+    return out
 
 
 def main():
@@ -5574,16 +6006,23 @@ def main():
     per_site_sp, agg_sp = phase_spatial_in()
     agg.update(agg_sp)
     spatial_mesh = phase_spatial_mesh(books)
+    heading('== the other recipes under --spatial_mesh (train_ss, the gated '
+            'DSGAN step, twostage_factd, cgan_cycle, Z3): two gloo ranks on '
+            'one card against one process')
+    spatial_recipes = phase_spatial_recipes()
     sp_seconds = time.time() - t_sp
     print('spatial-mesh phases: %.1f s' % sp_seconds)
 
     kernels = []
     for name in ('conv3x3', 'convt4s2', 'instance_norm_act', 'conv3x3_dw',
                  'instance_norm_bwd', 'conv4s2', 'conv3x3_in_stats',
-                 'instance_norm_apply') + SP_IN_KERNELS:
+                 'instance_norm_apply') + SP_IN_KERNELS + (
+                     'conv3x3_in_partial_stats',):
         a = agg[name]
         run = (readme['gate_on'] if name in agg_r else spatial_mesh
-               if name in SP_IN_KERNELS else train16)
+               if name in SP_IN_KERNELS
+               else spatial_recipes['dsgan_gated']
+               if name == 'conv3x3_in_partial_stats' else train16)
         kernels.append(dict(
             name=name, route='cuda', source=KERNEL_INFO[name]['source'],
             replaces=KERNEL_INFO[name]['replaces'],
@@ -5688,6 +6127,7 @@ def main():
                       seconds=gate_seconds),
                   data_mesh=dict(data_mesh, seconds=dm_seconds),
                   spatial_mesh=dict(spatial_mesh, in_sites=per_site_sp,
+                                    recipes=spatial_recipes,
                                     seconds=sp_seconds),
                   new_site_books={
                       path: {k: {repr(s_): c for s_, c in v.items()}

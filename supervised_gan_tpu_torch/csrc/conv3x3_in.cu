@@ -43,6 +43,15 @@
 //     no FMA, so a constant plane keeps var exactly 0.
 // No atomics; the order of every sum is fixed by the shape, so two runs
 // agree bitwise.
+//
+// The row-range entry (conv3x3_in_partial_stats, --spatial_mesh: a rank's
+// rows of a plane split over ranks) runs the same two kernels on a window of
+// rows [lo - 1, hi + 1) of the plane: the epilogue stores and sums only the
+// launch's output rows [r0, r1) (the rank's own, not the halo rows), y
+// holding just those rows, and the fold writes each plane's raw
+// (sum, sum of squares) in the same fixed order, not mean and rstd.  The
+// caller sums them over the ranks and forms mean and rstd from the global
+// H x W (ops/kernels/conv3x3_in.py stats_from_sums).
 
 #include "conv3x3_epilogue.cuh"
 
@@ -55,13 +64,18 @@ constexpr int FOLD_C = 8;                  // channels of one fold block
 constexpr int FOLD_R = 128;                // tile strides of one fold block
 constexpr int FOLD_THREADS = FOLD_C * FOLD_R;
 
-// grid: (pixel tiles, output-channel tiles, N)
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+// grid: (pixel tiles, output-channel tiles, N).  ROWS (the row-range
+// entry): output rows [r0, r1) are stored (as y's rows 0 ..) and summed,
+// the others computed and dropped; without it every row (r0, r1 unread).
+// The row test takes the f32 kernel past the 128 registers of two blocks
+// an SM (ptxas spilled 4 bytes there), so ROWS asks for one.
+template <typename T, bool ROWS>
+__global__ void __launch_bounds__(THREADS, ROWS ? 1 : 2)
 conv3x3_in_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const float* __restrict__ bias, T* __restrict__ y,
                      float2* __restrict__ partials, int Ci, int Co, int H,
-                     int W, int tiles_w, int tiles, bool wvec, bool xvec) {
+                     int W, int r0, int r1, int tiles_w, int tiles, bool wvec,
+                     bool xvec) {
   extern __shared__ __align__(16) char smem[];
   const int tile = blockIdx.x;
   const int oy0 = (tile / tiles_w) * TH;
@@ -78,7 +92,15 @@ conv3x3_in_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warp_m = warp % WARPS_M, warp_n = warp / WARPS_M;
-  T* yn = y + (size_t)n * Co * plane;
+  // ROWS: y's plane holds rows [r0, r1) and yn is offset by -r0 rows, so
+  // row p.oy stores at p.oy * W; each lane's two output rows (mt) are
+  // admitted or not as a whole, decided here, out of the unrolled loop
+  const size_t plane_y = ROWS ? (size_t)(r1 - r0) * W : plane;
+  T* yn = ROWS ? y + ((long long)n * Co * (r1 - r0) - r0) * W
+               : y + (size_t)n * Co * plane;
+  const int oyw = oy0 + warp_m * 2;
+  const bool rows_in[2] = {oyw >= r0 && oyw < r1,
+                           oyw + 1 >= r0 && oyw + 1 < r1};
   // s1[nt][jc], s2[nt][jc]: this lane's sums of channel
   // co0 + warp_n * 32 + nt * 8 + 2 * (lane & 3) + jc over its 4 pixels, in
   // the order (mt, jr) = (0, 0), (0, 1), (1, 0), (1, 1)
@@ -95,9 +117,9 @@ conv3x3_in_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int j = 0; j < 4; ++j) {
         const Pos p = frag_pos(oy0, co0, ox0, warp_m, warp_n, lane, mt, nt, j);
         float v = 0.f;
-        if (p.oy < H && p.co < Co && p.ox < W) {
+        if ((ROWS ? rows_in[mt] : p.oy < H) && p.co < Co && p.ox < W) {
           v = acc[mt][nt][j] + (bias != nullptr ? bias[p.co] : 0.f);
-          store(yn + (size_t)p.co * plane + (size_t)p.oy * W + p.ox, v);
+          store(yn + (size_t)p.co * plane_y + (size_t)p.oy * W + p.ox, v);
         }
         s1[nt][j & 1] += v;
         s2[nt][j & 1] += __fmul_rn(v, v);
@@ -143,7 +165,9 @@ conv3x3_in_tc_kernel(const T* __restrict__ x, const T* __restrict__ w,
 }
 
 // grid: (channel groups of FOLD_C, N).  Folds each plane's `tiles` partials
-// into its mean and rstd.
+// into its mean and rstd (stats: N * Co means, then N * Co rstds), or with
+// RAW into its (sum, sum of squares) (stats: (N, Co, 2)).
+template <bool RAW>
 __global__ void __launch_bounds__(FOLD_THREADS)
 conv3x3_in_fold_kernel(const float2* __restrict__ partials,
                        float* __restrict__ stats, int N, int Co, int tiles,
@@ -174,11 +198,16 @@ conv3x3_in_fold_kernel(const float2* __restrict__ partials,
   if (r == 0 && c < Co) {
     s1 = red[0][cc].x;
     s2 = red[0][cc].y;
+    const size_t p = (size_t)n * Co + c;
+    if (RAW) {
+      stats[2 * p] = s1;
+      stats[2 * p + 1] = s2;
+      return;
+    }
     const float hw = (float)HW;
     const float mean = __fdiv_rn(s1, hw);
     const float var =
         fmaxf(__fsub_rn(__fdiv_rn(s2, hw), __fmul_rn(mean, mean)), 0.f);
-    const size_t p = (size_t)n * Co + c;
     stats[p] = mean;
     stats[(size_t)N * Co + p] =
         __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
@@ -189,27 +218,28 @@ int num_tiles(int H, int W) {
   return ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
 }
 
-template <typename T>
+template <typename T, bool RAW>
 int launch(const void* x, const void* w, const float* bias, void* y,
            float* partials, float* stats, int N, int Ci, int Co, int H,
-           int W, float eps, cudaStream_t stream) {
+           int W, int r0, int r1, float eps, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      conv3x3_in_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<T>());
+      conv3x3_in_tc_kernel<T, RAW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (W + TW - 1) / TW;
   const int tiles = num_tiles(H, W);
   const bool wvec = weights_vec<T>(w, Ci), xvec = halo_vec<T>(x, W);
   float2* part = reinterpret_cast<float2*>(partials);
   const dim3 grid(tiles, (Co + BN - 1) / BN, N);
-  conv3x3_in_tc_kernel<T><<<grid, THREADS, smem_bytes<T>(), stream>>>(
+  conv3x3_in_tc_kernel<T, RAW><<<grid, THREADS, smem_bytes<T>(), stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), bias,
-      static_cast<T*>(y), part, Ci, Co, H, W, tiles_w, tiles, wvec, xvec);
+      static_cast<T*>(y), part, Ci, Co, H, W, r0, r1, tiles_w, tiles, wvec,
+      xvec);
   const cudaError_t le = cudaGetLastError();
   if (le != cudaSuccess) return static_cast<int>(le);
-  conv3x3_in_fold_kernel<<<dim3((Co + FOLD_C - 1) / FOLD_C, N), FOLD_THREADS,
-                           0, stream>>>(part, stats, N, Co, tiles, H * W,
-                                        eps);
+  conv3x3_in_fold_kernel<RAW>
+      <<<dim3((Co + FOLD_C - 1) / FOLD_C, N), FOLD_THREADS, 0, stream>>>(
+          part, stats, N, Co, tiles, H * W, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,10 +261,32 @@ extern "C" int conv3x3_in_fwd(const void* x, const void* w, const float* bias,
                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(x, w, bias, y, partials, stats, N, Ci, Co, H, W, eps,
-                         s);
+    return launch<float, false>(x, w, bias, y, partials, stats, N, Ci, Co, H,
+                                W, 0, H, eps, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, bias, y, partials, stats, N, Ci, Co, H,
-                                 W, eps, s);
+    return launch<__nv_bfloat16, false>(x, w, bias, y, partials, stats, N, Ci,
+                                        Co, H, W, 0, H, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The row-range entry: x (N, Ci, H, W) a window of rows, y (N, Co, r1 - r0,
+// W) its output rows [r0, r1), sums (N, Co, 2) float32: each plane's
+// (sum, sum of squares) of those rows of the f32 accumulator, bias added.
+// partials: conv3x3_in_workspace(N, Co, H, W) floats.  Returns
+// cudaGetLastError() after both launches.
+extern "C" int conv3x3_in_partial_stats(const void* x, const void* w,
+                                        const float* bias, void* y,
+                                        float* partials, float* sums, int N,
+                                        int Ci, int Co, int H, int W, int r0,
+                                        int r1, int dtype, void* stream) {
+  if (r0 < 0 || r1 > H || r0 >= r1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, true>(x, w, bias, y, partials, sums, N, Ci, Co, H, W,
+                               r0, r1, 0.f, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(x, w, bias, y, partials, sums, N, Ci,
+                                       Co, H, W, r0, r1, 0.f, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

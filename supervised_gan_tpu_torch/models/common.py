@@ -10,6 +10,7 @@ from ..nn.generators import (CascadedRefinementNetwork, DCGANGenerator,
                              FCGANGenerator, FCGANGeneratorStar)
 from ..nn.losses import gan_loss
 from ..ops import reflection_pad
+from ..parallel import spatial
 
 # the generators that take the noise alone (reference
 # models/networks.py:535 and 1067)
@@ -48,11 +49,13 @@ def l1_weight_map(real_A, weights):
 def mul_padded(in1, in2):
     """in1 * in2 with in1 reflection-padded, centred, to in2's spatial size
     (reference util/util.py:131-145; models/common.py:104-118 there): the
-    left and bottom pads take the floor of each split."""
-    if in1.shape == in2.shape:
+    left and bottom pads take the floor of each split.  Sizes are global
+    (--spatial_mesh: parallel/spatial.py ``height``); the row pads fetch
+    the rows they reflect (ops/pad.py)."""
+    h1, w1 = spatial.height(in1), in1.shape[3]
+    h2, w2 = spatial.height(in2), in2.shape[3]
+    if in1.shape[:2] == in2.shape[:2] and (h1, w1) == (h2, w2):
         return in1 * in2
-    h1, w1 = in1.shape[2:]
-    h2, w2 = in2.shape[2:]
     pad_l = (w2 - w1) // 2
     pad_b = (h2 - h1) // 2
     return reflection_pad(in1, pad_l, w2 - w1 - pad_l, h2 - h1 - pad_b,

@@ -1,9 +1,8 @@
 """Model recipe factory: the string dispatch of supervised_gan_tpu/models/
 factory.py (reference models/models.py:2-44, plus cgan_causal, which the
 JAX package registers).  In a process group every rank's networks start as
-rank 0's (parallel/mesh.py broadcast_modules), as DDP's do.  Under
---spatial_mesh a recipe it is not yet ported for raises, naming itself
-(parallel/mesh.py check_spatial)."""
+rank 0's (parallel/mesh.py broadcast_modules), as DDP's do.  Every recipe
+trains under --spatial_mesh (parallel/spatial.py)."""
 
 import torch
 
@@ -12,8 +11,6 @@ from .. import parallel
 
 def create_model(opt):
     print(opt.model)
-    if parallel.spatial.active():
-        parallel.check_spatial(opt)
     if opt.model == 'fcgan':
         from .fcgan import FCGANModel
         model = FCGANModel()

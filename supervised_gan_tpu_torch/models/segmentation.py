@@ -15,7 +15,10 @@ channel, so the argmax takes the first maximum).  The streaming metrics
 (the confusion matrix -> pixelAcc / meanAcc / meanIU, the Rand F-score)
 are host numpy, read from the step's outputs after the step
 (``accum_accs``), never inside it; train_ss and test_ss drive the
-reset_accs / accum_accs / get_current_accs protocol.
+reset_accs / accum_accs / get_current_accs protocol.  Under --spatial_mesh
+they read whole maps: every sp rank gathers the rows of the maps they read
+(``whole``), so each rank's metrics are its data row's, as RandScore is a
+score over whole images.
 """
 
 from collections import OrderedDict
@@ -29,6 +32,7 @@ from .pools import init_pool
 from .. import nn
 from ..nn.generators import activate
 from ..nn.losses import cross_entropy_2d, gan_loss, seg_bce_loss
+from ..parallel import spatial
 from ..utils.images import tensor2im
 from ..utils.metrics import compute_rand_f_scores
 
@@ -51,6 +55,11 @@ class SegAccumulatorMixin:
         self.meanAcc = 0
         self.meanIU = 0
 
+    def whole(self, name):
+        """The map ``name`` whole: gathered over the sp group where it is
+        row-sharded (every sp rank calls it)."""
+        return spatial.full(getattr(self, name))
+
     def accum_accs(self):
         if 'RandScore' in self.opt.which_metric:
             self.compute_current_rand_score()
@@ -60,8 +69,8 @@ class SegAccumulatorMixin:
     def compute_current_rand_score(self):
         assert self.num_classes == 2
         # foreground = channel 0
-        T = self.real_B[:, :1].detach().float().cpu().numpy()
-        S = self.fake_B[:, :1].detach().float().cpu().numpy()
+        T = self.whole('real_B')[:, :1].detach().float().cpu().numpy()
+        S = self.whole('fake_B')[:, :1].detach().float().cpu().numpy()
         ris = compute_rand_f_scores(S, T, do_thin=False)
         n = self.numAveragedImages
         m = n + ris.size
@@ -70,18 +79,18 @@ class SegAccumulatorMixin:
 
     def compute_current_accuracy(self):
         if self.opt.add_background_onehot_acc:
-            labels = _nhwc(self.real_B)
+            labels = _nhwc(self.whole('real_B'))
             labels = np.concatenate(
                 [labels, 1.0 - np.minimum(1, labels.sum(-1, keepdims=True))],
                 -1).argmax(-1).ravel()
-            preds = _nhwc(self.fake_B)
+            preds = _nhwc(self.whole('fake_B'))
             preds = np.concatenate(
                 [preds, 1.0 - np.minimum(1, preds.sum(-1, keepdims=True))],
                 -1).argmax(-1).ravel()
             plusone = 1
         else:
-            labels = self.label.cpu().numpy().ravel()
-            preds = _nhwc(self.logit).argmax(-1).ravel()
+            labels = self.whole('label').cpu().numpy().ravel()
+            preds = _nhwc(self.whole('logit')).argmax(-1).ravel()
             plusone = 0
         n_cls = self.num_classes + plusone
         num_pixels = labels.size

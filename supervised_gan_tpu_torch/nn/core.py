@@ -36,9 +36,9 @@ is made at the global batch's shape and cut to the rank's rows
 (parallel/mesh.py), so the ranks' masks and noise are the one-process run's;
 under --spatial_mesh it is made at the global height too and cut to the
 rank's rows where the tensor is row-sharded (parallel/spatial.py
-``draw_like``).  The fused region is not yet ported under --spatial_mesh:
-its epilogue's statistics would take the halo rows, so its gate raises
-there.
+``draw_like``).  The fused region runs under --spatial_mesh too: its gate
+reads the global height, and over split rows its statistics are summed
+over the sp group (ops/conv.py).
 """
 
 import math
@@ -245,11 +245,6 @@ class Sequential(nn.Sequential):
         i = 0
         while i < len(layers):
             layer = layers[i]
-            if _CONV3_IN_FUSED and kernels_enabled() and spatial.active():
-                raise NotImplementedError(
-                    'the fused conv3x3 + InstanceNorm region '
-                    '(SGAN_TPU_CONV3_IN=1) is not yet ported under '
-                    '--spatial_mesh')
             if (_CONV3_IN_FUSED and kernels_enabled()
                     and self._conv3x3_in_at(i, x)):
                 slope = _slope_of(layers[i + 2]) if i + 2 < len(layers) \

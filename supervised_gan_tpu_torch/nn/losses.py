@@ -82,15 +82,21 @@ def cross_entropy_2d(logits, labels, weights=None):
     logp = torch.log_softmax(logits.float(), dim=1)
     picked = logp.gather(1, labels.long().unsqueeze(1))[:, 0]
     if weights is None:
-        return -picked.mean()
+        return -spatial.mean(picked)
     # weights[label] with no host-to-device copy (a captured step holds
     # it); a label past the list takes its last weight, as a JAX gather
     w = torch.full_like(picked, float(weights[-1]))
     for i in reversed(range(len(weights) - 1)):
         w = torch.where(labels == i, float(weights[i]), w)
-    # in a process group, over the ranks' mean weight sum: the mean of the
-    # ranks' losses (and gradients) is then the global batch's ratio
-    return -(picked * w).sum() / parallel.mean_all_reduce(w.sum())
+    # in a process group, over the data ranks' mean weight sum: the mean of
+    # the data ranks' losses (and gradients) is then the global batch's
+    # ratio; under --spatial_mesh the numerator is this rank's rows' and the
+    # weight sum its sp row's (a constant), so the sp ranks' shares add up
+    wsum = spatial.own_rows(w).sum()
+    if spatial.active():
+        wsum = spatial.sp_sum_(wsum)
+    return (-spatial.own_rows(picked * w).sum()
+            / parallel.mean_all_reduce(wsum))
 
 
 def seg_bce_loss(p, target, weights=None):
@@ -103,10 +109,10 @@ def seg_bce_loss(p, target, weights=None):
         terms = -(t * torch.log(p.clamp_min(0.0)).clamp_min(-100.0)
                   + (1 - t) * torch.log((1 - p).clamp_min(0.0))
                   .clamp_min(-100.0))
-        return terms.mean()
+        return spatial.mean(terms)
     w = torch.ones_like(t[:, :1])
     for i, wi in enumerate(weights):
         w = w + t[:, i:i + 1] * (wi - 1.0)
     terms = -(t * torch.log(p.clamp(1e-12, 1.0)).clamp_min(-100.0)
               + (1 - t) * torch.log(1 - p).clamp_min(-100.0))
-    return (terms * w).mean()
+    return spatial.mean(terms * w)

@@ -31,6 +31,11 @@ pads a whole image, and the crop drops the rows that padding touched.  A
 k4 s1 p1 head or any shape no kernel serves runs torch.nn.functional on the
 window with no row padding.  Every gate reads the global shape.  A
 replicated output is the whole-image dispatch on the replicated input.
+The fused region's gate reads the global height too, so every rank takes
+the region where one process does; over split rows it runs on the rank's
+window [lo - 1, hi + 1) through Conv3x3InActRows: the row-range entry's
+statistics of the rank's own rows, summed over the sp group, mean and rstd
+over the global H x W.
 """
 
 import os
@@ -38,8 +43,8 @@ import os
 import torch.nn.functional as F
 
 from ..parallel import spatial
-from .kernels import (Conv3x3, Conv3x3InAct, Conv4s2, ConvT4s2,
-                      kernels_enabled)
+from .kernels import (Conv3x3, Conv3x3InAct, Conv3x3InActRows, Conv4s2,
+                      ConvT4s2, kernels_enabled)
 
 # the JAX package's pixel minimum, read as it reads it: below it the region
 # does not run
@@ -151,10 +156,12 @@ def conv3x3_in_supported(x, w):
     weight with C_in == C_out == C, C a divisor of 128 (P = 128 / C pixels
     packed per 128 lanes there) or a multiple of 128 (P = 1), W divisible by
     P with W / P and H multiples of 8, H >= 16, and H * W at least
-    CONV3_MIN_PIXELS.  x (N, C, H, W), w (Co, Ci, kh, kw)."""
+    CONV3_MIN_PIXELS, H the global height (--spatial_mesh: every rank
+    decides as one process does).  x (N, C, H, W), w (Co, Ci, kh, kw)."""
     if x.dim() != 4 or w.dim() != 4:
         return False
-    n, c, h, wd = x.shape
+    n, c, _, wd = x.shape
+    h = spatial.height(x)
     co, ci, kh, kw = w.shape
     if (kh, kw) != (3, 3) or ci != c or co != c or n != 1:
         return False
@@ -172,4 +179,16 @@ def conv3x3_in_supported(x, w):
 def conv3x3_in_act(x, w, b=None, eps=1e-5, slope=None):
     """act(InstanceNorm(conv3x3(x, w, b))), differentiable, in x's dtype
     (slope None: no activation; 0.0: ReLU; else LeakyReLU(slope))."""
-    return Conv3x3InAct.apply(x, w.to(x.dtype), _bias(b, x), eps, slope)
+    w = w.to(x.dtype)
+    if not spatial.active():
+        return Conv3x3InAct.apply(x, w, _bias(b, x), eps, slope)
+    h = spatial.height(x)
+    count = h * x.shape[3]
+
+    def run(rows, a, lo, hi):
+        return Conv3x3InActRows.apply(rows, w, _bias(b, x), eps, slope,
+                                      count, spatial.sp_sum_)
+
+    return spatial.map_rows(
+        x, h, lambda lo, hi: (lo - 1, hi + 1), run,
+        lambda xw: Conv3x3InAct.apply(xw, w, _bias(b, x), eps, slope))

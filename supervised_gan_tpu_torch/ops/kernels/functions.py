@@ -9,11 +9,13 @@ own ``torch.nn.grad.conv2d_weight``, as the JAX package left them to XLA.
 """
 
 import torch
+import torch.nn.functional as F
 from torch.nn.grad import conv2d_weight
 
 from .conv3x3 import conv3x3
 from .conv3x3_dw import conv3x3_dw
-from .conv3x3_in import conv3x3_in_stats
+from .conv3x3_in import (conv3x3_in_partial_stats, conv3x3_in_stats,
+                         stats_from_sums)
 from .conv4s2 import conv4s2
 from .convt4s2 import convt4s2
 from . import instance_norm as _in
@@ -85,6 +87,47 @@ class Conv3x3InAct(torch.autograd.Function):
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = _bias_grad(dconv)
         return dx, dw, db, None, None
+
+
+class Conv3x3InActRows(torch.autograd.Function):
+    """Conv3x3InAct over planes whose rows are split over ranks
+    (--spatial_mesh): x is this rank's rows with one halo row above and
+    below (zero past the image's edges), the output its own rows, ``count``
+    the global plane's H x W and ``reduce_`` sums a tensor in place over the
+    ranks.  Forward: the row-range entry's output rows and their (sum,
+    sum of squares), all-reduced; mean and rstd from the global count
+    (``stats_from_sums``); instance_norm_apply.  Backward: dconv through the
+    row-split IN entries (partial sums, all-reduced, apply over ``count``);
+    then, over the window (dconv with zero halo rows), dx = conv3x3 of it
+    with the flipped weight, dW = conv3x3_dw, db = sum dconv."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, eps, slope, count, reduce_):
+        x, w = x.contiguous(), w.contiguous()
+        y, sums = conv3x3_in_partial_stats(x, w, b, 1, x.shape[2] - 1)
+        mean, rstd = stats_from_sums(reduce_(sums), count, eps)
+        ctx.save_for_backward(x, w, y, mean, rstd)
+        ctx.has_bias = b is not None
+        ctx.slope, ctx.count, ctx.reduce_ = slope, count, reduce_
+        return _in.instance_norm_apply(y, mean, rstd, slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, y, mean, rstd = ctx.saved_tensors
+        g = g.contiguous()
+        sums = ctx.reduce_(_in.instance_norm_bwd_partial_stats(
+            y, g, mean, rstd, ctx.slope))
+        dconv = _in.instance_norm_bwd_apply(y, g, mean, rstd, sums,
+                                            ctx.count, ctx.slope)
+        window = F.pad(dconv, [0, 0, 1, 1])
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv3x3_dx(window, w)
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_dw(x, window).to(w.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            db = _bias_grad(dconv)
+        return dx, dw, db, None, None, None, None
 
 
 class ConvT4s2(torch.autograd.Function):

@@ -66,19 +66,6 @@ _unsharded = 0       # depth of unsharded() regions
 
 
 # ------------------------------------------------------ flags and launch -- #
-# the recipes --spatial_mesh is ported for (the others raise, naming
-# themselves: models/factory.py), each with the --which_model_net* flags of
-# the nets it builds
-SPATIAL_RECIPES = {'fcgan': ('G', 'D'), 'cgan': ('G', 'D'),
-                   'twostage_cycle': ('G1', 'G2', 'F2', 'D1', 'D2')}
-# the nets held under --spatial_mesh (tests/test_torch_spatial_steps.py),
-# by kind; the others raise, naming themselves
-SPATIAL_NETS = {'G': ('fcgan', 'deconv', 'unet_128', 'unet_256', 'crn',
-                      'resnet_9blocks', 'resnet_6blocks'),
-                'F': ('unet_128', 'unet_256'),
-                'D': ('basic', 'n_layers')}
-
-
 def grid(opt):
     """(data rows, sp ranks a row) of the options: --data_mesh and
     --spatial_mesh, each 0 or 1 meaning one."""
@@ -91,34 +78,11 @@ def workers(opt):
     return n * s
 
 
-def check_spatial(opt, entry='train'):
-    """Raise NotImplementedError, naming --spatial_mesh, where the options
-    ask for it on a recipe or an entry point it is not yet ported for."""
-    if getattr(opt, 'spatial_mesh', 0) <= 1:
-        return
-    if entry != 'train':
-        raise NotImplementedError('--spatial_mesh is not yet ported for the '
-                                  '%s entry point' % entry)
-    if opt.model not in SPATIAL_RECIPES:
-        raise NotImplementedError(
-            '--spatial_mesh is not yet ported for --model %s (ported: %s)'
-            % (opt.model, ', '.join(SPATIAL_RECIPES)))
-    for net in SPATIAL_RECIPES[opt.model]:
-        flag = 'which_model_net' + net
-        which = getattr(opt, flag, None)
-        if which is not None and which not in SPATIAL_NETS[net[0]]:
-            raise NotImplementedError(
-                '--spatial_mesh is not yet ported for --%s %s (ported: %s)'
-                % (flag, which, ', '.join(SPATIAL_NETS[net[0]])))
-
-
 def check_flags(opt):
     """Raise for a parallel flag set the training entry points cannot run:
-    --batchSize not divisible by --data_mesh, a --dcn_* set whose process
-    count does not divide the grid's workers, or --spatial_mesh on a recipe
-    it is not yet ported for."""
+    --batchSize not divisible by --data_mesh, or a --dcn_* set whose
+    process count does not divide the grid's workers."""
     n, p = opt.data_mesh, opt.dcn_num_processes
-    check_spatial(opt)
     if n > 1 and opt.batchSize % n:
         raise ValueError('--batchSize %d is not divisible by --data_mesh %d: '
                          'each worker takes an equal share of the batch'
@@ -423,15 +387,18 @@ def _comm_device():
     return _group['device'] if _group['backend'] == 'nccl' else 'cpu'
 
 
-def mean_values(values):
+def mean_values(values, shares=True):
     """A dict of floats summed over the sp group and averaged over the data
-    group (the identity outside a group): the printed losses."""
+    group (the identity outside a group): the printed losses, each rank's
+    its share of its data row's.  With ``shares`` False each rank's values
+    are its whole data row's (the segmentation accuracies, read from
+    gathered maps): averaged over the whole grid."""
     if not active() or not values:
         return values
     t = torch.tensor([float(v) for v in values.values()], dtype=torch.float64,
                      device=_comm_device())
     dist.all_reduce(t)
-    t /= world()
+    t /= world() if shares else _group['world']
     return type(values)(zip(values.keys(), t.tolist()))
 
 

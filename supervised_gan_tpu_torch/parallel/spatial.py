@@ -414,22 +414,30 @@ def map_rows(x, h_out, need, run, whole):
     return mark(y, h_out)
 
 
+def own_rows(t):
+    """This rank's rows of a map (rows at -2): a sharded map's own, the
+    partition's rows of a replicated one (``bounds`` of its height); the
+    whole map outside a split."""
+    if not active() or sharded(t):
+        return t
+    lo, hi = bounds(t.shape[-2])
+    return t.narrow(-2, lo, hi - lo)
+
+
 def mean(t):
     """The mean of a map's terms ``t`` (rows at -2) as this rank's share: its
-    rows' sum over the map's global count (the sp ranks' shares add up to
-    the mean)."""
+    rows' sum (``own_rows``) over the map's global count, so the sp ranks'
+    shares add up to the mean.  Terms without rows (fewer than 3 axes: the
+    dcgan D's (N,) score, replicated on every sp rank) are split evenly:
+    each sp rank takes 1 / S of their mean, so the gradients that
+    parallel/mesh.py average_gradients sums over the sp group, and those
+    that flow back through a replicated tensor (``replicate``'s backward
+    sums them), add up to one process's."""
     if not active():
         return t.mean()
-    if t.dim() < 2:
-        raise NotImplementedError('--spatial_mesh: a loss over a map without '
-                                  'rows (shape %s) is not yet ported'
-                                  % (tuple(t.shape),))
-    h = height(t)
-    part = t
-    if not sharded(t):
-        lo, hi = bounds(h)
-        part = t.narrow(-2, lo, hi - lo)
-    return part.sum() / (t.numel() // t.shape[-2] * h)
+    if t.dim() < 3 and not sharded(t):
+        return t.mean() / size()
+    return own_rows(t).sum() / (t.numel() // t.shape[-2] * height(t))
 
 
 # ------------------------------------------------------------- the pools -- #
@@ -451,5 +459,6 @@ def whole_pools(pools):
 
 __all__ = ['MIN_ROWS', 'active', 'bounds', 'cut', 'draw_like', 'enter',
            'fetch_rows', 'full', 'height', 'index', 'is_split', 'leave',
-           'local_shape', 'map_rows', 'mark', 'mean', 'quiet', 'replicate',
-           'sharded', 'size', 'sp_sum_', 'sum_over', 'whole_pools']
+           'local_shape', 'map_rows', 'mark', 'mean', 'own_rows', 'quiet',
+           'replicate', 'sharded', 'size', 'sp_sum_', 'sum_over',
+           'whole_pools']

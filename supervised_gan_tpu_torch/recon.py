@@ -13,8 +13,9 @@ line gives the BCE of the reconstructions and the N(0, I) negative
 log-likelihood of the fitted and of the starting noises, mean and std over
 the images.  TF32 is off (models/base.py `disable_tf32`).
 
-It takes the parallel flags (--data_mesh, --dcn_*) and runs one unsharded
-process all the same, as the JAX package does: only training is sharded.
+It takes the parallel flags (--data_mesh, --spatial_mesh, --dcn_*) and runs
+one unsharded process all the same, as the JAX package does: only training
+is sharded.
 """
 
 import os

@@ -14,8 +14,9 @@ after its input.  Both write under results/<name>/<phase>_<which_epoch>/
 TF32 is off (models/base.py `disable_tf32`); --no_pallas runs every conv
 and norm site on its PyTorch library call.
 
-It takes the parallel flags (--data_mesh, --dcn_*) and runs one unsharded
-process all the same, as the JAX package does: only training is sharded.
+It takes the parallel flags (--data_mesh, --spatial_mesh, --dcn_*) and runs
+one unsharded process all the same, as the JAX package does: only training
+is sharded.
 """
 
 import os

@@ -13,8 +13,9 @@ results/<name>/<phase>_<which_epoch>/; prints the accuracies and the
 cross entropy's mean and std.  TF32 is off (models/base.py
 `disable_tf32`).
 
-It takes the parallel flags (--data_mesh, --dcn_*) and runs one unsharded
-process all the same, as the JAX package does: only training is sharded.
+It takes the parallel flags (--data_mesh, --spatial_mesh, --dcn_*) and runs
+one unsharded process all the same, as the JAX package does: only training
+is sharded.
 """
 
 import os

@@ -37,11 +37,11 @@ each save); the printed losses are the ranks' mean; only rank 0 profiles.
 A machine with fewer cards than workers raises.
 
 --spatial_mesh S (> 1) splits every image's height over S ranks
-(parallel/spatial.py; fcgan, cgan and twostage_cycle), alone or in a
-grid with --data_mesh N (N x S workers, the sp index the minor one): the
-printed losses are summed over each row of S ranks and averaged over the
-N rows, the displayed visuals and the checkpointed pools are gathered
-from the S ranks, and the steps run one by one (no captured graph).
+(parallel/spatial.py; every recipe), alone or in a grid with --data_mesh N
+(N x S workers, the sp index the minor one): the printed losses are summed
+over each row of S ranks and averaged over the N rows, the displayed
+visuals and the checkpointed pools are gathered from the S ranks, and the
+steps run one by one (no captured graph).
 """
 
 import random

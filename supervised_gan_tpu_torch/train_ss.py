@@ -15,12 +15,16 @@ runs on ``cuda:<first --gpu_ids>``; with no CUDA device it raises unless
 --gpu_ids -1 asks for the CPU.  TF32 is off (models/base.py
 `disable_tf32`).
 
---data_mesh N (> 1) trains data-parallel as the train entry point does
-(parallel/mesh.py): N workers, each on its share of every batch, rank 0
-alone writing checkpoints and logs.  Validation runs unsharded on every
-rank (``parallel.unsharded``), each on the whole val set, so every rank
-keeps its generators in step and picks the same ``best``; the printed
-losses and train accuracies are the ranks' mean.
+--data_mesh N (> 1) trains data-parallel and --spatial_mesh S (> 1) splits
+the height, alone or as a grid, as the train entry point does
+(parallel/mesh.py, parallel/spatial.py): N x S workers, each on its share
+of every batch, rank 0 alone writing checkpoints and logs.  Validation runs
+unsharded on every rank (``parallel.unsharded``), each on the whole val
+set, so every rank keeps its generators in step and picks the same
+``best``.  The printed losses are summed over each sp row and averaged
+over the data rows; the train accuracies are read from maps gathered over
+the sp row (models/segmentation.py) and averaged over the grid; the
+displayed visuals and the checkpointed pools are whole.
 """
 
 import ntpath
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from . import parallel
+from .parallel import spatial
 from .data import CreateDataLoader
 from .models import create_model
 from .models.base import disable_tf32
@@ -52,7 +57,6 @@ def main(args=None):
 
     if opt_train.manualSeed is None:
         opt_train.manualSeed = random.randint(1, 10000)
-    parallel.check_spatial(opt_train, 'train_ss')
     parallel.check_flags(opt_train)
     if parallel.sharded(opt_train):
         return parallel.launch(run, opt_train, (opt_val,))
@@ -118,13 +122,17 @@ def run(opt_train, opt_val):
                 torch.cuda.synchronize(model.device)
             step_seconds.append(time.time() - iter_start_time)
 
-            if total_steps % opt_train.display_freq == 0 and main_rank:
-                visualizer.display_current_results(
-                    model.get_current_visuals(), epoch)
+            if total_steps % opt_train.display_freq == 0 and (
+                    main_rank or spatial.active()):
+                # under --spatial_mesh every rank gathers the visuals' rows
+                visuals = model.get_current_visuals()
+                if main_rank:
+                    visualizer.display_current_results(visuals, epoch)
 
             if total_steps % opt_train.print_freq == 0:
                 errors = parallel.mean_values(model.get_current_errors())
-                accs = parallel.mean_values(model.get_current_accs())
+                accs = parallel.mean_values(model.get_current_accs(),
+                                            shares=False)
                 t = (time.time() - iter_start_time) / opt_train.batchSize
                 if main_rank:
                     visualizer.print_current_errors(epoch, epoch_iter, errors,
@@ -192,9 +200,11 @@ def run(opt_train, opt_val):
 
 
 def save(model, label):
-    """model.save(label) on rank 0; every rank waits until it is written."""
-    if parallel.is_main():
-        model.save(label)
+    """model.save(label) on rank 0, the pools whole; every rank waits until
+    it is written."""
+    with spatial.whole_pools(getattr(model, 'pools', {})):
+        if parallel.is_main():
+            model.save(label)
     parallel.barrier()
 
 

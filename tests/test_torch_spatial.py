@@ -16,9 +16,8 @@ running tests/torch_spatial_jobs.py ``units``.
     kernels (`_fwd_stats_kernel`, `_bwd_stats_kernel`, `_bwd_apply_kernel`)
     in interpret mode, as tests/test_torch_instance_norm.py holds the
     one-launch kernels;
-  * the refusals: --spatial_mesh on a recipe, net or entry point it is not
-    yet ported for, the fused region's gate under it, fewer cards than workers,
-    and a model built outside its group.
+  * the refusals: fewer cards than workers and a model built outside its
+    group.
 """
 
 import functools
@@ -35,8 +34,6 @@ from jax.experimental import pallas as pl
 from supervised_gan_tpu.ops.pallas import instance_norm as sin
 from supervised_gan_tpu_torch import parallel
 from supervised_gan_tpu_torch import train as ttrain
-from supervised_gan_tpu_torch import train_ss as ttrain_ss
-from supervised_gan_tpu_torch.nn import core as nn_core
 from supervised_gan_tpu_torch.ops.kernels import instance_norm as tin
 from supervised_gan_tpu_torch.options import TrainOptions
 
@@ -260,38 +257,6 @@ def _compose(slope):
 
 
 # ------------------------------------------------------------ refusals -- #
-TRAIN = ['--dataroot', './datasets/unused', '--name', 'sp_refusal',
-         '--gpu_ids', '-1', '--spatial_mesh', '2']
-
-
-@pytest.mark.parametrize('model', ['twostage', 'cgan_cycle', 'segmentation',
-                                   'twostage_factd', 'cgan2'])
-def test_recipe_not_ported_raises(model, tmp_path):
-    with pytest.raises(NotImplementedError, match='--spatial_mesh.*%s'
-                       % model):
-        ttrain.main(TRAIN + ['--model', model, '--checkpoints_dir',
-                             str(tmp_path)])
-
-
-@pytest.mark.parametrize('model,flag,net', [
-    ('cgan', 'which_model_netG', 'autoencoder'),
-    ('fcgan', 'which_model_netG', 'fcgan_star'),
-    ('cgan', 'which_model_netD', 'n_layers_sep'),
-    ('twostage_cycle', 'which_model_netD2', 'dcgan')])
-def test_net_not_ported_raises(model, flag, net, tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match='--spatial_mesh.*--%s %s' % (flag, net)):
-        ttrain.main(TRAIN + ['--model', model, '--%s' % flag, net,
-                             '--checkpoints_dir', str(tmp_path)])
-
-
-def test_train_ss_raises(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match='--spatial_mesh.*train_ss'):
-        ttrain_ss.main(TRAIN + ['--model', 'segmentation',
-                                '--checkpoints_dir', str(tmp_path)])
-
-
 def test_fewer_cards_than_workers_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 1)
     with pytest.raises(RuntimeError, match='fewer cards than workers'):
@@ -309,25 +274,6 @@ def test_model_outside_its_group_raises(tmp_path):
          '--checkpoints_dir', str(tmp_path)])
     with pytest.raises(RuntimeError, match='--spatial_mesh 2'):
         create_model(opt)
-
-
-def fused_gate_job(opt, out):
-    """The fused region's gate on, a conv3x3 + IN Sequential under sp: the
-    error it raised."""
-    nn_core._CONV3_IN_FUSED = True
-    seq = nn_core.Sequential(nn_core.Conv2d(2, 2, 3, 1, 1),
-                             nn_core.InstanceNorm2d(2))
-    try:
-        seq(parallel.spatial.cut(torch.zeros(1, 2, 32, 32)))
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
-def test_fused_region_gate_raises_under_spatial_mesh(tmp_path):
-    msg = launch(fused_gate_job, str(tmp_path))
-    assert msg is not None and 'SGAN_TPU_CONV3_IN' in msg \
-        and '--spatial_mesh' in msg
 
 
 # ------------------------------------------------------ the entry point -- #

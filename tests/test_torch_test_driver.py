@@ -101,21 +101,6 @@ def test_gpu_asked_without_cuda_raises(ckpt_dir, tmp_path, monkeypatch):
         ttest.main(['--how_many', '1'] + _args(ckpt_dir, str(tmp_path)))
 
 
-@pytest.mark.parametrize("flag,value", [('--spatial_mesh', '2')])
-def test_unported_flag_raises(tmp_path, flag, value):
-    """--spatial_mesh is ported for fcgan, cgan and twostage_cycle; on a
-    recipe still queued (twostage) the train entry point raises, naming
-    the flag, before it starts a worker."""
-    from supervised_gan_tpu_torch import train as ttrain
-    assert flag[2:] not in base_options.NOT_YET_PORTED
-    extra = [flag, value]
-    args = ['--dataroot', './datasets/null', '--name', 'dsgan_small',
-            '--checkpoints_dir', str(tmp_path)] + ARCH + extra
-    args[args.index('twostage_cycle')] = 'twostage'
-    with pytest.raises(NotImplementedError, match=flag):
-        ttrain.main(['--gpu_ids', '-1'] + args)
-
-
 def _images(r):
     img = os.path.join(r['web_dir'], 'images')
     return {f: open(os.path.join(img, f), 'rb').read()
@@ -124,10 +109,11 @@ def _images(r):
 
 @pytest.mark.parametrize("flag,value", [
     ('--data_mesh', '2'), ('--dcn_coordinator', 'localhost:1234'),
-    ('--dcn_num_processes', '2'), ('--dcn_process_id', '1')])
+    ('--dcn_num_processes', '2'), ('--dcn_process_id', '1'),
+    ('--spatial_mesh', '2')])
 def test_parallel_flag_parses_and_sampler_runs_unsharded(ckpt_dir, tmp_path,
                                                          flag, value):
-    """The data-parallel flags parse; the sampler runs one unsharded process
+    """The parallel flags parse; the sampler runs one unsharded process
     under each (no process group) and writes the images it writes without
     it."""
     assert flag[2:] not in base_options.NOT_YET_PORTED
