@@ -32,6 +32,13 @@ batch rows; each pool of a sharded height holds the rank's rows of its
 images, applying the same decisions as every other rank (``query_pool``),
 and a checkpoint stores them whole (``save_full_state`` inside
 spatial.whole_pools, train.py ``save``).
+
+The dispatch path carries the profiler spans of utils/profile.py (on only
+while a profiler records): ``dispatch.train_chunk``; ``dispatch.stage_inputs``
+(``set_input``'s, or a chunk's) holding a ``dispatch.host_inputs`` a batch
+and one ``dispatch.to_device``; ``dispatch.stage_rows``; and each eager
+``train_step`` as the timed ``dispatch.eager_step``.  Nothing inside
+``train_step``: a captured step holds nothing host-side.
 """
 
 import os
@@ -45,6 +52,7 @@ from .. import nn, parallel
 from ..ops.kernels import set_kernels_enabled
 from ..parallel import spatial
 from ..utils import pth as pthio
+from ..utils.profile import span, timed
 
 # eager steps a model runs before a chunk captures its step: the first fills
 # the kernels' libraries, the resampling constants and Adam's state
@@ -190,11 +198,15 @@ class BaseModel:
     def set_input(self, input):
         """The step inputs of one loader batch; in a process group this
         rank's rows of it, cut before the host copy."""
-        for name, t in self.host_inputs(input).items():
-            t = parallel.rows(t)
-            h = t.shape[-2]
-            setattr(self, name, spatial.mark(
-                self.to_device(spatial.cut(t)), h))
+        with span('dispatch.stage_inputs'):
+            with span('dispatch.host_inputs'):
+                hosts = self.host_inputs(input)
+            with span('dispatch.to_device'):
+                for name, t in hosts.items():
+                    t = parallel.rows(t)
+                    h = t.shape[-2]
+                    setattr(self, name, spatial.mark(
+                        self.to_device(spatial.cut(t)), h))
 
     def get_image_paths(self):
         return self.image_paths
@@ -214,23 +226,24 @@ class BaseModel:
         k steps, drawn on the host in the order k eager steps draw them, as
         one (k, Q, 3) tensor on the device (one copy); None when no pool is
         queried."""
-        rows = []
-        n = self.opt.batchSize
-        for _ in range(k):
-            for name in self.pool_queries():
-                pool = self.pools[name]
-                if pool is None:
-                    continue
-                if name in self.sampled_pools:
-                    rows += sample_rows(pool, n, self.pool_generator)
-                else:
-                    rows += decide(pool, draw_decisions(
-                        pool, n, self.pool_generator),
-                        self.pool_rejects.get(name, REJECT))
-        if not rows:
-            return None
-        return self.to_device(torch.tensor(rows, dtype=torch.int64)).view(
-            k, -1, 3)
+        with span('dispatch.stage_rows'):
+            rows = []
+            n = self.opt.batchSize
+            for _ in range(k):
+                for name in self.pool_queries():
+                    pool = self.pools[name]
+                    if pool is None:
+                        continue
+                    if name in self.sampled_pools:
+                        rows += sample_rows(pool, n, self.pool_generator)
+                    else:
+                        rows += decide(pool, draw_decisions(
+                            pool, n, self.pool_generator),
+                            self.pool_rejects.get(name, REJECT))
+            if not rows:
+                return None
+            return self.to_device(torch.tensor(
+                rows, dtype=torch.int64)).view(k, -1, 3)
 
     def _next_rows(self, name, n):
         if self._rows is None or self._rows.shape[0] < n:
@@ -276,7 +289,8 @@ class BaseModel:
         """One training iteration on the current input."""
         rows = self.stage_rows(1)
         self._rows = None if rows is None else rows[0]
-        self.train_step()
+        with timed('dispatch.eager_step'):
+            self.train_step()
         self.steps_run += 1
 
     def train_chunk(self, batches):
@@ -286,15 +300,22 @@ class BaseModel:
         batches staged on the device in one copy (JAX models/base.py:298
         there).  In a process group: set_input and optimize_parameters for
         each batch, no graph (JAX models/base.py:304-310 there)."""
-        if parallel.active():
-            for b in batches:
-                self.set_input(b)
-                self.optimize_parameters()
-            return
-        hosts = [self.host_inputs(b) for b in batches]
-        self.train_chunk_stacked(
-            {name: self.to_device(torch.stack([h[name] for h in hosts]))
-             for name in hosts[0]}, len(batches))
+        with span('dispatch.train_chunk'):
+            if parallel.active():
+                for b in batches:
+                    self.set_input(b)
+                    self.optimize_parameters()
+                return
+            with span('dispatch.stage_inputs'):
+                hosts = []
+                for b in batches:
+                    with span('dispatch.host_inputs'):
+                        hosts.append(self.host_inputs(b))
+                with span('dispatch.to_device'):
+                    stacked = {name: self.to_device(
+                        torch.stack([h[name] for h in hosts]))
+                        for name in hosts[0]}
+            self.train_chunk_stacked(stacked, len(batches))
 
     def train_chunk_stacked(self, stacked, k):
         """k iterations whose inputs lie on the device stacked on the leading
@@ -317,7 +338,8 @@ class BaseModel:
                 for name, t in inputs.items():
                     setattr(self, name, t)
                 self._rows = step_rows
-                self.train_step()
+                with timed('dispatch.eager_step'):
+                    self.train_step()
             self.steps_run += 1
 
     def graph_kernels(self):

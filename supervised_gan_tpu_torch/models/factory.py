@@ -7,6 +7,7 @@ trains under --spatial_mesh (parallel/spatial.py)."""
 import torch
 
 from .. import parallel
+from ..utils.profile import timed
 
 
 def create_model(opt):
@@ -51,8 +52,9 @@ def create_model(opt):
         model = SegmentationCycleModel()
     else:
         raise ValueError("Model [%s] not recognized." % opt.model)
-    model.initialize(opt)
-    parallel.broadcast_modules([v for v in vars(model).values()
-                                if isinstance(v, torch.nn.Module)])
+    with timed('models.init'):
+        model.initialize(opt)
+        parallel.broadcast_modules([v for v in vars(model).values()
+                                    if isinstance(v, torch.nn.Module)])
     print("model [%s] was created" % model.name())
     return model

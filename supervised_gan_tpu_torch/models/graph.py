@@ -23,6 +23,8 @@ import ctypes
 import torch
 import torch.distributed
 
+from ..utils.profile import span, timed
+
 CU_GRAPH_NODE_TYPE_KERNEL = 0
 
 
@@ -60,9 +62,10 @@ class StepGraph:
         self._bind(model)
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.graph.register_generator_state(model.noise_generator)
-        with torch.cuda.graph(self.graph):
-            model.train_step()
-        self.graph.instantiate()
+        with timed('graph.capture'):
+            with torch.cuda.graph(self.graph):
+                model.train_step()
+            self.graph.instantiate()
         self.outputs = {name: getattr(model, name)
                         for name in model.STEP_OUTPUTS}
         self.kernels = kernel_nodes(self.graph)
@@ -75,11 +78,12 @@ class StepGraph:
     def replay(self, model, inputs, rows):
         """One step on ``inputs`` and ``rows`` (device tensors): copied in,
         replayed, the outputs bound to ``model``."""
-        for name, t in inputs.items():
-            self.inputs[name].copy_(t)
-        if rows is not None:
-            self.rows.copy_(rows)
-        self._bind(model)
-        self.graph.replay()
-        for name, v in self.outputs.items():
-            setattr(model, name, v)
+        with span('graph.replay'):
+            for name, t in inputs.items():
+                self.inputs[name].copy_(t)
+            if rows is not None:
+                self.rows.copy_(rows)
+            self._bind(model)
+            self.graph.replay()
+            for name, v in self.outputs.items():
+                setattr(model, name, v)

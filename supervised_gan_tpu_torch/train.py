@@ -25,7 +25,10 @@ of steps with no synchronize inside).  --profile_dir traces the steps from
 total_steps == 10 x batchSize to 20 x batchSize (train.py:47-49, 72-76
 there) with torch.profiler and writes ``<profile_dir>/*.pt.trace.json``; a
 trace in which a kernel launch lost its device record fails the run and is
-not written (utils/profile.py).
+not written (utils/profile.py); the trace carries the port's spans
+(PERF.md section 3).  After the first dispatch it prints the set-up's
+timed sections (utils/profile.py TIMES: ``models.init``,
+``dispatch.eager_step``, ``graph.capture``).
 
 --data_mesh N (> 1) trains data-parallel (parallel/mesh.py): this process
 spawns N workers (N / P with --dcn_num_processes P, the rest on the other
@@ -56,18 +59,19 @@ from .data import CreateDataLoader
 from .models import create_model
 from .models.base import disable_tf32
 from .options import TrainOptions
-from .utils.profile import Trace
+from .utils.profile import TIMES, Trace
 from .utils.visualizer import Visualizer
 
 
 def main(args=None):
-    """Train; returns {'steps', 'step_seconds', 'chunks', 'trace'}: the
-    iterations run, the wall time of each dispatch (optimize_parameters(),
-    or train_chunk() under --steps_per_dispatch) up to a device
-    synchronization (the first includes the kernels' build), the steps of
-    each dispatch, and for --profile_dir {'path', 'launches', 'kernels',
-    'primer_lost'} of the trace written (else None); under --data_mesh the
-    first local worker's."""
+    """Train; returns {'steps', 'step_seconds', 'chunks', 'trace', 'times'}:
+    the iterations run, the wall time of each dispatch
+    (optimize_parameters(), or train_chunk() under --steps_per_dispatch) up
+    to a device synchronization (the first includes the kernels' build),
+    the steps of each dispatch, for --profile_dir {'path', 'launches',
+    'kernels', 'primer_lost'} of the trace written (else None), and the
+    timed sections {name: [calls, seconds]} (utils/profile.py TIMES); under
+    --data_mesh the first local worker's."""
     opt = TrainOptions().parse(args)
     if opt.manualSeed is None:
         opt.manualSeed = random.randint(1, 10000)
@@ -112,6 +116,10 @@ def run(opt):
             torch.cuda.synchronize(model.device)
         step_seconds.append(time.time() - start)
         chunks.append(len(batches))
+        if len(chunks) == 1 and main_rank:
+            print('set-up: %s' % ', '.join(
+                '%s %d x %.3f s' % (name, n, s)
+                for name, (n, s) in TIMES.items()))
 
     for epoch in range(1, opt.niter + opt.niter_decay + 1):
         epoch_start_time = time.time()
@@ -196,7 +204,8 @@ def run(opt):
         print('profiler trace not written: the run ended at step %d, before '
               'step %d' % (total_steps, 20 * opt.batchSize))
     return {'steps': total_steps // opt.batchSize,
-            'step_seconds': step_seconds, 'chunks': chunks, 'trace': written}
+            'step_seconds': step_seconds, 'chunks': chunks, 'trace': written,
+            'times': {name: list(v) for name, v in TIMES.items()}}
 
 
 def save(model, label):

@@ -22,12 +22,51 @@ A profiler that records no device kernel at all (no CUPTI) gives a trace
 with no device rows; the caller decides what that means.  On the CPU a
 trace records host activity only.  The counterpart of the JAX package's
 ``jax.profiler`` calls in train.py:47-49, 72-76 and bench.py:179-187.
+
+The port's own spans (PERF.md's layers):
+
+  ``span(name)``: a ``torch.profiler.record_function`` while a profiler
+      records, so the span lands in that trace on its clock, nested in the
+      span that encloses it; otherwise one shared no-op context, which
+      allocates and records nothing;
+  ``timed(name)``: the same, and its host time (``time.perf_counter_ns``)
+      added to ``TIMES[name] = [calls, seconds]``, totals since the process
+      started, one entry a name: for work done a few times a run (set-up).
+
+Nothing else switches them: they are on exactly while a profiler records.
+With none, a ``with span(...)`` costs 0.4-0.6 us where a bare
+``record_function`` costs 7-12 us (the H100 machine's host, torch 2.11).
 """
 
+import contextlib
 import os
 import time
 
 import torch
+
+_NULL = contextlib.nullcontext()
+TIMES = {}
+
+
+def span(name):
+    """A profiler span ``name`` while a profiler records, else a no-op."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+@contextlib.contextmanager
+def timed(name):
+    """``span(name)``, its host time added to ``TIMES[name]``."""
+    t = time.perf_counter_ns()
+    try:
+        with span(name):
+            yield
+    finally:
+        entry = TIMES.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += (time.perf_counter_ns() - t) * 1e-9
+
 
 PRIMER_SPINS = 128
 TRACES = 3

@@ -4,8 +4,9 @@ single-PNG dataset (label in R and G, image in B), 2 iterations of a narrow
 DSGAN config with pools and dropout on.
 Checked: the loss lines, the numbered / latest checkpoints (the per-net
 .pth files and the port's full state), the web/ page, the lr decay print,
-that without --gpu_ids -1 and with no CUDA device it raises, and
---profile_dir's trace of steps 10-20 (the DSGAN options through this
+the set-up's timed sections it returns and prints, that without
+--gpu_ids -1 and with no CUDA device it raises, and --profile_dir's trace
+of steps 10-20 with the port's spans (the DSGAN options through this
 entry point: tests/test_torch_train_flags.py)."""
 
 import json
@@ -83,10 +84,18 @@ def test_train_cli_two_steps(dataroot, tmp_path):
             'fake_A_real_B', 'real_B', 'recon_real_A', 'recon_fake_A'))
 
 
-def test_train_decays_lr_and_returns_steps(dataroot, tmp_path):
+def test_train_decays_lr_and_returns_steps(dataroot, tmp_path, capsys):
+    """It also returns and prints, after the first dispatch, the set-up's
+    timed sections (totals of the process, utils/profile.py TIMES)."""
     r = ttrain.main(['--gpu_ids', '-1']
                     + _args(dataroot, str(tmp_path / 'ckpt')))
     assert r['steps'] == 4 and len(r['step_seconds']) == 4
+    assert r['times']['models.init'][0] >= 1
+    assert r['times']['dispatch.eager_step'][0] >= 4
+    assert all(s > 0 for _, s in r['times'].values())
+    (line,) = [l for l in capsys.readouterr().out.splitlines()
+               if l.startswith('set-up: ')]
+    assert 'models.init ' in line and 'dispatch.eager_step ' in line
 
 
 def test_train_without_cuda_raises(dataroot, tmp_path, monkeypatch):
@@ -120,6 +129,11 @@ def test_profile_dir_writes_a_trace_of_steps_10_to_20(dataroot, tmp_path,
     with open(r['trace']['path']) as f:
         events = json.load(f)['traceEvents']
     assert any(e.get('name') == 'aten::conv2d' for e in events)
+    # the port's spans: per-step dispatches, each step eager on the CPU
+    names = {e.get('name') for e in events}
+    assert {'dispatch.stage_inputs', 'dispatch.host_inputs',
+            'dispatch.to_device', 'dispatch.stage_rows',
+            'dispatch.eager_step'} <= names
 
 
 def test_profile_dir_not_written_short(dataroot, tmp_path, capsys):
