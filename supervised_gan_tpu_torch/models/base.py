@@ -34,11 +34,14 @@ and a checkpoint stores them whole (``save_full_state`` inside
 spatial.whole_pools, train.py ``save``).
 
 The dispatch path carries the profiler spans of utils/profile.py (on only
-while a profiler records): ``dispatch.train_chunk``; ``dispatch.stage_inputs``
-(``set_input``'s, or a chunk's) holding a ``dispatch.host_inputs`` a batch
-and one ``dispatch.to_device``; ``dispatch.stage_rows``; and each eager
-``train_step`` as the timed ``dispatch.eager_step``.  Nothing inside
-``train_step``: a captured step holds nothing host-side.
+while a profiler records): ``dispatch.train_chunk``; a ``dispatch.stage_inputs``
+a batch (``set_input``'s, or each of a chunk's) holding its
+``dispatch.host_inputs`` and ``dispatch.to_device``; ``dispatch.stage_rows``;
+each eager ``train_step`` as the timed ``dispatch.eager_step``; and each of a
+chunk's batches after the first, staged behind the step enqueued before it,
+as the timed ``dispatch.stage_ahead`` (its count is how often a chunk's
+staging overlaps the card's work).  Nothing inside ``train_step``: a
+captured step holds nothing host-side.
 """
 
 import os
@@ -166,6 +169,7 @@ class BaseModel:
         self.steps_run = 0
         self._rows = None          # this step's pool rows, on the device
         self._graph = None         # the captured step (models/graph.py)
+        self._stage_ahead = None   # train_chunk's stager of its later batches
 
     def noise_draw(self, shape):
         """N(0, 1) float32 noise of ``shape`` on the device from the seeded
@@ -188,12 +192,15 @@ class BaseModel:
         define it (and set image_paths)."""
         raise NotImplementedError
 
-    def to_device(self, t):
-        """A host tensor on the model's device; on a card through pinned
+    def to_device(self, t, out=None):
+        """A host tensor on the model's device (copied into ``out``, a device
+        tensor of its shape and dtype, where given); on a card through pinned
         memory, without synchronizing the host."""
         if self.device.type == 'cuda':
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+            t = t.pin_memory()
+        if out is None:
+            return t.to(self.device, non_blocking=True)
+        return out.copy_(t, non_blocking=True)
 
     def set_input(self, input):
         """The step inputs of one loader batch; in a process group this
@@ -297,25 +304,51 @@ class BaseModel:
         """len(batches) iterations: the same as set_input(b);
         optimize_parameters() for each b in turn (the same draws, the same
         final state; metrics and taps are the last step's), with the
-        batches staged on the device in one copy (JAX models/base.py:298
-        there).  In a process group: set_input and optimize_parameters for
-        each batch, no graph (JAX models/base.py:304-310 there)."""
+        batches staged into one device stack (JAX models/base.py:298 there):
+        the first before the chunk's pool rows and its first step, each
+        later one behind the step before it, so that on a card the host
+        stages batch i + 1 while the card runs step i.  In a process group:
+        set_input and optimize_parameters for each batch, no graph (JAX
+        models/base.py:304-310 there)."""
         with span('dispatch.train_chunk'):
             if parallel.active():
                 for b in batches:
                     self.set_input(b)
                     self.optimize_parameters()
                 return
-            with span('dispatch.stage_inputs'):
-                hosts = []
-                for b in batches:
-                    with span('dispatch.host_inputs'):
-                        hosts.append(self.host_inputs(b))
-                with span('dispatch.to_device'):
-                    stacked = {name: self.to_device(
-                        torch.stack([h[name] for h in hosts]))
-                        for name in hosts[0]}
-            self.train_chunk_stacked(stacked, len(batches))
+            k = len(batches)
+            stacked = {}
+            self._stage_batch(stacked, k, 0, batches[0])
+
+            def ahead(i):
+                with timed('dispatch.stage_ahead'):
+                    self._stage_batch(stacked, k, i, batches[i])
+            self._stage_ahead = ahead
+            try:
+                self.train_chunk_stacked(stacked, k)
+            finally:
+                self._stage_ahead = None
+
+    def _stage_batch(self, stacked, k, i, batch):
+        """Loader batch ``batch`` into slot i of the chunk's device stacks
+        ``stacked`` ({STEP_INPUTS name: (k, ...) tensor}, allocated from
+        slot 0's shapes)."""
+        with span('dispatch.stage_inputs'):
+            with span('dispatch.host_inputs'):
+                hosts = self.host_inputs(batch)
+            with span('dispatch.to_device'):
+                for name, t in hosts.items():
+                    if i == 0:
+                        stacked[name] = torch.empty(
+                            (k,) + t.shape, dtype=t.dtype, device=self.device)
+                    slot = stacked[name][i]
+                    if t.shape != slot.shape or t.dtype != slot.dtype:
+                        raise RuntimeError(
+                            'train_chunk: batch %d of the chunk gives %s a '
+                            '%s %s tensor, batch 0 a %s %s one' % (
+                                i, name, tuple(t.shape), t.dtype,
+                                tuple(slot.shape), slot.dtype))
+                    self.to_device(t, slot)
 
     def train_chunk_stacked(self, stacked, k):
         """k iterations whose inputs lie on the device stacked on the leading
@@ -323,7 +356,10 @@ class BaseModel:
         has run CAPTURE_AFTER eager steps, each is a replay of the captured
         step (models/graph.py; one graph of one step, whatever k), with no
         synchronize; before that, and on the CPU, an eager step.  A capture
-        or replay that fails raises."""
+        or replay that fails raises.  Inside train_chunk, slot i + 1 of the
+        stacks is staged right after step i is enqueued (its stager, set
+        for the call); called alone, every slot is staged already."""
+        ahead = self._stage_ahead
         rows = self.stage_rows(k)
         cuda = self.device.type == 'cuda'
         for i in range(k):
@@ -341,6 +377,8 @@ class BaseModel:
                 with timed('dispatch.eager_step'):
                     self.train_step()
             self.steps_run += 1
+            if ahead is not None and i + 1 < k:
+                ahead(i + 1)
 
     def graph_kernels(self):
         """Kernel nodes in the captured step (None before a capture): what

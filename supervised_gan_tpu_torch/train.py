@@ -28,7 +28,10 @@ trace in which a kernel launch lost its device record fails the run and is
 not written (utils/profile.py); the trace carries the port's spans
 (PERF.md section 3).  After the first dispatch it prints the set-up's
 timed sections (utils/profile.py TIMES: ``models.init``,
-``dispatch.eager_step``, ``graph.capture``).
+``dispatch.eager_step``, ``graph.capture``), and at the end of training
+every timed section's totals, ``dispatch.stage_ahead`` among them (the
+batches of a chunk staged behind the step before it: k - 1 of a chunk of
+k).
 
 --data_mesh N (> 1) trains data-parallel (parallel/mesh.py): this process
 spawns N workers (N / P with --dcn_num_processes P, the rest on the other
@@ -117,9 +120,7 @@ def run(opt):
         step_seconds.append(time.time() - start)
         chunks.append(len(batches))
         if len(chunks) == 1 and main_rank:
-            print('set-up: %s' % ', '.join(
-                '%s %d x %.3f s' % (name, n, s)
-                for name, (n, s) in TIMES.items()))
+            print('set-up: %s' % timed_sections())
 
     for epoch in range(1, opt.niter + opt.niter_decay + 1):
         epoch_start_time = time.time()
@@ -203,9 +204,17 @@ def run(opt):
         trace.prof.stop()
         print('profiler trace not written: the run ended at step %d, before '
               'step %d' % (total_steps, 20 * opt.batchSize))
+    if main_rank:
+        print('timed sections: %s' % timed_sections())
     return {'steps': total_steps // opt.batchSize,
             'step_seconds': step_seconds, 'chunks': chunks, 'trace': written,
             'times': {name: list(v) for name, v in TIMES.items()}}
+
+
+def timed_sections():
+    """TIMES as one line: each section's calls and seconds."""
+    return ', '.join('%s %d x %.3f s' % (name, n, s)
+                     for name, (n, s) in TIMES.items())
 
 
 def save(model, label):

@@ -7,10 +7,13 @@ test_torch_chunk.py's models:
     inside it;
   * under a CPU torch.profiler, a 3-batch ``train_chunk`` of a narrow
     twostage_cycle and of a narrow cgan model records the dispatch path's
-    spans nested by time (dispatch.train_chunk holding dispatch.stage_inputs,
-    which holds a dispatch.host_inputs a batch and one dispatch.to_device,
-    then dispatch.stage_rows, then an eager step a batch), and set_input +
-    optimize_parameters records the same for one batch;
+    spans nested by time: dispatch.train_chunk holding a
+    dispatch.stage_inputs a batch (each holding its dispatch.host_inputs,
+    then its dispatch.to_device), batch 0's first, then dispatch.stage_rows,
+    then an eager step a batch, batch i + 1 staged inside a
+    dispatch.stage_ahead after step i begins and before step i + 1; and
+    set_input + optimize_parameters records one batch's staging, the rows
+    and its step, nothing ahead;
   * ``create_model`` adds one ``models.init`` call to TIMES;
   * the state after a chunk is bitwise the same with the profiler on and
     off.
@@ -108,23 +111,31 @@ def test_dispatch_spans_nest_by_time(recipe, path, tmp_path):
     eager = list(profile.TIMES.get('dispatch.eager_step', [0, 0.0]))
     spans = _profiled(lambda: _run(model, path, batches))
     n = len(batches)
-    want = {'dispatch.stage_inputs': 1, 'dispatch.host_inputs': n,
-            'dispatch.to_device': 1, 'dispatch.stage_rows': 1,
+    want = {'dispatch.stage_inputs': n, 'dispatch.host_inputs': n,
+            'dispatch.to_device': n, 'dispatch.stage_rows': 1,
             'dispatch.eager_step': n}
     if path == 'chunk':
         want['dispatch.train_chunk'] = 1
+        want['dispatch.stage_ahead'] = n - 1
     assert {k: len(v) for k, v in spans.items()} == want
-    (stage,), (copy,) = spans['dispatch.stage_inputs'], spans[
-        'dispatch.to_device']
-    assert all(_inside(h, stage) and h[1] <= copy[0]
-               for h in spans['dispatch.host_inputs'])
-    assert _inside(copy, stage)
+    stages, hosts, copies = (spans['dispatch.stage_inputs'],
+                             spans['dispatch.host_inputs'],
+                             spans['dispatch.to_device'])
+    for stage, host, copy in zip(stages, hosts, copies):
+        assert _inside(host, stage) and _inside(copy, stage)
+        assert host[1] <= copy[0]
     rows, steps = spans['dispatch.stage_rows'], spans['dispatch.eager_step']
-    assert stage[1] <= rows[0][0] and rows[0][1] <= steps[0][0]
+    assert stages[0][1] <= rows[0][0] and rows[0][1] <= steps[0][0]
     assert all(a[1] <= b[0] for a, b in zip(steps, steps[1:]))
+    # batch i + 1 is staged behind step i: after it begins, before the next
+    for i, ahead in enumerate(spans.get('dispatch.stage_ahead', [])):
+        assert _inside(stages[i + 1], ahead)
+        assert steps[i][0] <= hosts[i + 1][0]
+        assert ahead[1] <= steps[i + 1][0]
     if path == 'chunk':
         (chunk,) = spans['dispatch.train_chunk']
-        assert all(_inside(s, chunk) for s in [stage] + rows + steps)
+        assert all(_inside(s, chunk) for s in stages + rows + steps
+                   + spans['dispatch.stage_ahead'])
     # an eager step is timed whether or not a profiler records
     done = profile.TIMES['dispatch.eager_step']
     assert done[0] == eager[0] + n and done[1] > eager[1]

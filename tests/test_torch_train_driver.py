@@ -86,16 +86,19 @@ def test_train_cli_two_steps(dataroot, tmp_path):
 
 def test_train_decays_lr_and_returns_steps(dataroot, tmp_path, capsys):
     """It also returns and prints, after the first dispatch, the set-up's
-    timed sections (totals of the process, utils/profile.py TIMES)."""
+    timed sections (totals of the process, utils/profile.py TIMES), and
+    their totals again at the end."""
     r = ttrain.main(['--gpu_ids', '-1']
                     + _args(dataroot, str(tmp_path / 'ckpt')))
     assert r['steps'] == 4 and len(r['step_seconds']) == 4
     assert r['times']['models.init'][0] >= 1
     assert r['times']['dispatch.eager_step'][0] >= 4
     assert all(s > 0 for _, s in r['times'].values())
-    (line,) = [l for l in capsys.readouterr().out.splitlines()
-               if l.startswith('set-up: ')]
+    out = capsys.readouterr().out.splitlines()
+    (line,) = [l for l in out if l.startswith('set-up: ')]
     assert 'models.init ' in line and 'dispatch.eager_step ' in line
+    (end,) = [l for l in out if l.startswith('timed sections: ')]
+    assert 'dispatch.eager_step ' in end
 
 
 def test_train_without_cuda_raises(dataroot, tmp_path, monkeypatch):
