@@ -8,8 +8,8 @@ Readings:
            names (a chunk reports its last step's);
   moments  each parameter's Adam first moment after the first step, as a
            norm (the first gradient times 1 - beta1 where one optimizer
-           step is one train step; cgan's G steps twice a train step, and
-           its moment then mixes both gradients alike on both sides);
+           step is one train step; where a recipe steps G twice a train
+           step, its moment mixes both gradients alike on both sides);
   change   each parameter's change over all the checked steps, as a norm.
 
 Gaps (each number is compared with its limit, from the workload file):

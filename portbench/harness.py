@@ -3,13 +3,16 @@ the check against the plain reference.
 
 Everything is found by name: the cell in BENCHMARK.json, its configuration
 (configs/<config>.json: the flags, host threads, source, reduced,
-assumed), its traffic mix (traffic/<traffic>.json, read by traffic.py),
-its check (workloads/<cell>.json: the limits and any subsets, check.py)
-and each per-layer metric's reader
-(metrics/<metric>.py).  The program, supervised_gan_tpu_torch, is driven
-through the calls of its train.py ``dispatch``: ``train_chunk(batches)``
-for a mix of k > 1 steps a dispatch, else ``set_input(batch)`` and
-``optimize_parameters()``, each dispatch ended by a synchronize.
+assumed, the CPU tests' narrow widths, and its plain reference: a module
+path and a class, ``recipe_class``), its traffic mix
+(traffic/<traffic>.json, read by traffic.py), its check
+(workloads/<cell>.json: the limits and any subsets, check.py), the hand
+kernels' families (kernels/<family>.py, roofline.py) and each per-layer
+metric's reader (metrics/<metric>.py).  The program,
+supervised_gan_tpu_torch, is driven through the calls of its train.py
+``dispatch``: ``train_chunk(batches)`` for a mix of k > 1 steps a
+dispatch, else ``set_input(batch)`` and ``optimize_parameters()``, each
+dispatch ended by a synchronize.
 
 Set-up: the program's model from the configuration's flags, the seeded
 weights written into it, its pools filled with seeded images (so the
@@ -36,7 +39,6 @@ from pathlib import Path
 import torch
 
 from . import check, roofline, trace, traffic, weights
-from .reference import train as ref_train
 from .reference.ctx import Ctx, Draws
 
 PKG = Path(__file__).resolve().parent
@@ -66,6 +68,34 @@ def lookup(bench, name):
     return (w, c, load_json(ROOT / c['file']),
             traffic.load(PKG / 'traffic' / ('%s.json' % w['traffic'])),
             load_json(PKG / 'workloads' / ('%s.json' % name)))
+
+
+def recipe_class(conf_file, conf):
+    """The reference class that configuration ``conf`` (read from
+    ``conf_file``) names in its ``reference``: '<path of a module from the
+    checkout's root> <class>', the contract in reference/__init__.py.  The
+    module is imported under the dotted name of its path, so that its
+    relative imports resolve and its classes are those every other
+    importer sees.  A configuration that names none, or a module or class
+    that is not there, stops the run."""
+    def stop(why):
+        raise SystemExit('configuration %s: %s' % (conf_file, why))
+    if 'reference' not in conf:
+        stop('no "reference" (a module path and a class name)')
+    words = str(conf['reference']).split()
+    if len(words) != 2:
+        stop('"reference" %r is not a module path and a class name'
+             % (conf['reference'],))
+    path = (ROOT / words[0]).resolve()
+    if (path.suffix != '.py' or not path.is_file()
+            or not path.is_relative_to(ROOT)):
+        stop('no module %s in the checkout' % words[0])
+    module = importlib.import_module(
+        '.'.join(path.relative_to(ROOT).with_suffix('').parts))
+    cls = getattr(module, words[1], None)
+    if not isinstance(cls, type):
+        stop('%s has no class %s' % (words[0], words[1]))
+    return cls
 
 
 def metric_specs(bench, name, kind):
@@ -211,6 +241,7 @@ class Run:
         self.bench = bench or benchmark()
         (self.cell, self.config, cfg, self.mix,
          checks) = lookup(self.bench, name)
+        self.recipe = recipe_class(self.config['file'], cfg)
         self.limits = checks['limits']
         self.subsets = checks.get('subsets', {})
         self.name = name
@@ -250,7 +281,7 @@ class Run:
         self.program = Program(self.flags, self.mix, s_prog, s_pool,
                                self.device, 'portbench_' + self.name)
         plant(self.program, self.fault)
-        ref = ref_train.build(self.flags, self.device)
+        ref = self.recipe(self.flags, self.device)
         start = weights.make(ref, s_w, self.device)
         self.program.load(start)
         self.program.fill_pools(pool_images(ref, self.mix, s_pool,
@@ -265,7 +296,8 @@ class Run:
         for i, n in enumerate(self.check_sizes()):
             batches = self.next_batches(n)
             if i == 1 and cuda:
-                with roofline.recording(functions) as calls:
+                with roofline.recording(functions,
+                                        roofline.families()) as calls:
                     self.program.dispatch(batches)
                 self.sites = calls
             else:
@@ -337,7 +369,7 @@ class Run:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         s_prog, s_w, s_img, s_pool = seeds(self.seed)
-        recipe = ref_train.build(self.flags, self.device, s_pool)
+        recipe = self.recipe(self.flags, self.device, s_pool)
         start = weights.make(recipe, s_w, self.device)
         recipe.fill_pools(pool_images(recipe, self.mix, s_pool, self.device))
         start = {'%s.%s' % (label, k): v for label, sd in start.items()
@@ -379,7 +411,9 @@ def reader(metric):
 
 
 class Readings:
-    """What a per-layer metric's reader reads."""
+    """What a per-layer metric's reader reads: the window, the trace's
+    summary, the recorded calls (``roofline.Site``, each with its family)
+    and the families' device operations."""
 
     def __init__(self, run, window, summary, flops_per_step):
         self.batch = run.mix['batch']
@@ -388,8 +422,9 @@ class Readings:
         self.trace = summary
         self.sites = run.sites
         self.flops_per_step = flops_per_step
-        self.hand_kernels = set(load_json(PKG / 'data' /
-                                          'hand_kernels.json')['kernels'])
+        self.device_names = {name: frozenset(fam.DEVICE_NAMES) for name, fam
+                             in roofline.families().items()}
+        self.hand_kernels = frozenset().union(*self.device_names.values())
 
     def window_s(self):
         return self.window[-1][2] - self.window[0][0]
@@ -399,21 +434,29 @@ class Readings:
 
     def is_hand(self, name):
         """A device operation of one of the port's hand kernels, by the
-        identifiers in its (demangled) name."""
+        identifiers in its (demangled) name: any family's DEVICE_NAMES."""
         return not self.hand_kernels.isdisjoint(IDENT.findall(name))
 
+    def family_sites(self, family):
+        """The recorded calls of one family's entry points."""
+        return [s for s in self.sites if s.family == family]
 
-def step_flops(flags, batch):
-    """FLOPs of one reference train step at the cell's shapes, counted on
-    the meta device (shapes only)."""
+    def is_family(self, family, name):
+        """A device operation of family ``family``'s kernels."""
+        return not self.device_names[family].isdisjoint(IDENT.findall(name))
+
+
+def step_flops(recipe, flags, batch):
+    """FLOPs of one train step of reference class ``recipe`` at the cell's
+    shapes, counted on the meta device (shapes only)."""
     from torch.utils.flop_counter import FlopCounterMode
-    recipe = ref_train.build(flags, 'meta')
+    on_meta = recipe(flags, 'meta')
     size = flags['fineSize']
     a_nc, b_nc = flags['input_nc'], flags['output_nc']
     x = {'A': torch.empty((batch, a_nc, size, size), device='meta'),
          'B': torch.empty((batch, b_nc, size, size), device='meta')}
     with FlopCounterMode(display=False) as counter:
-        recipe.step(x, Ctx(Draws(0, 'meta')))
+        on_meta.step(x, Ctx(Draws(0, 'meta')))
     return float(counter.get_total_flops())
 
 

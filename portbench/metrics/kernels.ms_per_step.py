@@ -1,5 +1,6 @@
-"""kernels.ms_per_step: device ms a step of the port's hand kernels
-(data/hand_kernels.json) in the traced stretch; nothing where none ran."""
+"""kernels.ms_per_step: device ms a step of the port's hand kernels (the
+device operations that any kernels/<family>.py names in DEVICE_NAMES) in
+the traced stretch; nothing where none ran."""
 
 
 def read(r):

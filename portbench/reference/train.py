@@ -1,19 +1,14 @@
-"""The two configurations' train steps in plain PyTorch: Adam, the image
-pools, the losses and the update schedules of the reference's
-twostage_cycle (DSGAN) and cgan (SGAN step 2) models, as SURVEY.md and the
-reference README describe them.
+"""Train steps in plain PyTorch: Adam, the image pools, the losses and the
+update schedules of the reference's twostage_cycle (``DSGAN``) and cgan
+(``CGAN``, SGAN step 2) models, as SURVEY.md and the reference README
+describe them.
 
-``build(flags, device, pool_seed)`` makes a ``Recipe`` from a
-configuration's flags (the option names of the reference's train.py,
-without the dashes).  Its nets are empty: the benchmark writes the same
-seeded weights into them and into the program.  Its pools draw their
-decisions from one CPU generator seeded with ``pool_seed``, as the
-program's pools draw theirs; ``fill_pools`` starts them full of given
-images.  ``recipe.step(batch, ctx)`` runs one train iteration on
-``batch`` ({'A': label channels, 'B': image channels}, NCHW float32) and
-returns the iteration's losses by the reference's names.  After the first
-iteration ``first_moments()`` gives each parameter's Adam first moment, and
-``named_params()`` every parameter, keyed '<net>.<name>'.
+Each class keeps reference/__init__.py's contract; a configuration file
+names one in its ``reference`` ('portbench/reference/train.py CGAN'), and
+the harness finds it by that name.  ``Recipe`` holds what the classes
+share; a new recipe is a class in a module of its own, a subclass of these
+where it shares their step (a cgan with another generator overrides
+``CGAN.generator`` alone).
 """
 
 import collections
@@ -271,11 +266,11 @@ class DSGAN(Recipe):
 
 
 class CGAN(Recipe):
-    """cgan (SGAN step 2): G (U-Net with dropout and injected Gaussian noise)
-    maps the label to the image, a D bank judges (label, image) pairs.  One
-    iteration: the forward, n_update_D D updates, n_update_G G updates, the
-    forward drawn again after each update of a kind repeated more than
-    once (the last one unrecorded)."""
+    """cgan (SGAN step 2): G (``generator``: the U-Net with dropout and
+    injected Gaussian noise) maps the label to the image, a D bank judges
+    (label, image) pairs.  One iteration: the forward, n_update_D D
+    updates, n_update_G G updates, the forward drawn again after each
+    update of a kind repeated more than once (the last one unrecorded)."""
 
     LOSSES = ('G_GAN', 'G_L1', 'D_real', 'D_fake')
 
@@ -285,8 +280,7 @@ class CGAN(Recipe):
         a_nc, b_nc = f['input_nc'], f['output_nc']
         gauss = f.get('gaussian_sigma', 0.1) if f.get('add_gaussian_noise') \
             else None
-        self.nets['G'] = nets.Unet(a_nc, b_nc, {'unet_128': 7, 'unet_256': 8}[
-            f['which_model_netG']], f['ngf'], not f.get('no_dropout'), gauss)
+        self.nets['G'] = self.generator(f, gauss)
         self.nets['D'] = nets.d_bank(a_nc + b_nc, f['ndf'],
                                      _list(f['n_layers_D']),
                                      _list(f['scale_factor']))
@@ -295,6 +289,14 @@ class CGAN(Recipe):
         self.optG = Adam([(self.nets['G'].parameters(), f['lr'])], b1)
         self.optD = Adam([(self.nets['D'].parameters(), f['lr'])], b1)
         self.pools['fake'] = Pool(self.pool_size, self.pool_gen)
+
+    def generator(self, f, gauss):
+        """G for flags ``f`` (``gauss``: the injected noise's sigma, or
+        None), built before the Adams take its parameters: the U-Net.  A
+        recipe with another generator overrides this alone."""
+        return nets.Unet(f['input_nc'], f['output_nc'],
+                         {'unet_128': 7, 'unet_256': 8}[f['which_model_netG']],
+                         f['ngf'], not f.get('no_dropout'), gauss)
 
     def optimizers(self):
         return (self.optG, self.optD)
@@ -340,9 +342,3 @@ class CGAN(Recipe):
                     fake_B = self.record(A, ctx)
         return out
 
-
-RECIPES = {'twostage_cycle': DSGAN, 'cgan': CGAN}
-
-
-def build(flags, device, pool_seed=0):
-    return RECIPES[flags['model']](flags, device, pool_seed)

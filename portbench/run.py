@@ -107,7 +107,7 @@ def main(argv=None):
     steps = sum(w[3] for w in window)
     e2e = harness.end_to_end(window, run.mix['batch'], setup_s)
     if args.trace:
-        flops = harness.step_flops(run.flags, run.mix['batch'])
+        flops = harness.step_flops(run.recipe, run.flags, run.mix['batch'])
         readings = harness.Readings(run, window, summary, flops)
         metrics = {}
         for m in harness.metric_specs(bench, args.workload, 'per_layer'):

@@ -2,6 +2,7 @@
 a window, the trace's busy union, gaps and launch counts, the rooflines'
 operations and bytes, the site recorder and the FLOP count."""
 
+import re
 import types
 
 import pytest
@@ -79,17 +80,22 @@ def test_idle_share_of_a_known_gap_is_exact():
     assert idle == pytest.approx(60.0)
 
 
+def readings(events, sites, steps=4):
+    """The Readings of a traced stretch of ``events`` and of recorded
+    ``sites``, with no window."""
+    run = types.SimpleNamespace(mix={'batch': 1, 'steps_per_dispatch': 10},
+                                sites=sites)
+    return harness.Readings(run, [], summary(events, steps=steps), None)
+
+
 def test_readers_split_hand_kernels_from_the_library():
     ev = [Event(trace.DISPATCH_SPAN, 0, 1000, False),
           Event('void (anonymous namespace)::conv3x3_tc_kernel<__nv_bfloat16'
                 ', 2>(int)', 0, 300, True),
           Event('cudnn_conv_kernel', 300, 500, True),
           Event('Memset (Device)', 500, 600, True)]
-    r = types.SimpleNamespace(trace=summary(ev, steps=4),
-                              sites=[('conv3x3', 1.0, 1.0, 30e-6)] * 2,
-                              is_hand=harness.Readings.is_hand,
-                              hand_kernels={'conv3x3_tc_kernel'})
-    r.is_hand = lambda name: harness.Readings.is_hand(r, name)
+    site = roofline.Site('conv3x3', 1.0, 1.0, 30e-6, 'conv3x3')
+    r = readings(ev, [site] * 2)
     assert harness.reader('kernels.ms_per_step')(r) == pytest.approx(0.075)
     assert harness.reader('ops.library_ms_per_step')(r) == pytest.approx(
         0.075)
@@ -97,19 +103,57 @@ def test_readers_split_hand_kernels_from_the_library():
     assert harness.reader('hand_kernels_roofline')(r) == pytest.approx(80.0)
 
 
+def test_families_match_the_program_kernels():
+    """One family a csrc/<family>.cu of the program: its entries are names
+    of ops.kernels.functions, its device names the file's kernels, each
+    claimed by one family; the per-family lookup tells one family's from
+    another's."""
+    from supervised_gan_tpu_torch.ops.kernels import functions
+    csrc = harness.ROOT / 'supervised_gan_tpu_torch' / 'csrc'
+    fams = roofline.families()
+    assert set(fams) == {p.stem for p in csrc.glob('*.cu')}
+    entries = [e for f in fams.values() for e in f.ENTRIES]
+    names = [n for f in fams.values() for n in f.DEVICE_NAMES]
+    assert len(entries) == len(set(entries))
+    assert len(names) == len(set(names))
+    for family, fam in fams.items():
+        kernels = set(re.findall(r'__global__ void(?: __launch_bounds__\s*'
+                                 r'\([^)]*\))?\s+(\w+)',
+                                 (csrc / (family + '.cu')).read_text()))
+        assert set(fam.DEVICE_NAMES) == kernels, family
+        assert all(callable(getattr(functions, e, None))
+                   for e in fam.ENTRIES), family
+    sites = [roofline.Site('conv3x3', 1.0, 1.0, 1e-6, 'conv3x3'),
+             roofline.Site('conv3x3_in_stats', 1.0, 1.0, 1e-6, 'conv3x3_in')]
+    r = readings([Event(trace.DISPATCH_SPAN, 0, 1000, False)], sites)
+    op = 'void (anonymous namespace)::conv3x3_in_tc_kernel<float>(int)'
+    assert r.is_family('conv3x3_in', op) and r.is_hand(op)
+    assert not r.is_family('conv3x3', op)
+    assert [s.entry for s in r.family_sites('conv3x3_in')] == [
+        'conv3x3_in_stats']
+    twice = dict(fams, again=fams['conv3x3'])
+    with pytest.raises(ValueError, match='conv3x3'):
+        with roofline.recording(types.SimpleNamespace(), twice):
+            pass
+
+
 def test_conv_costs_and_bounds():
+    fams = roofline.families()
     x = torch.empty(2, 16, 32, 32, dtype=torch.bfloat16)
     w = torch.empty(8, 16, 3, 3, dtype=torch.bfloat16)
-    flops, nbytes = roofline.cost('conv3x3', (x, w, None))
+    flops, nbytes = fams['conv3x3'].cost('conv3x3', (x, w, None))
     assert flops == 2.0 * 2 * 8 * 32 * 32 * 16 * 9
     assert nbytes == 2 * (x.numel() + w.numel() + 2 * 8 * 32 * 32)
-    assert roofline.peak('conv3x3', (x, w)) == roofline.PEAK_BF16_FLOPS
-    f, b = roofline.cost('convt4s2', (x, torch.empty(16, 8, 4, 4)))
+    assert fams['conv3x3'].peak('conv3x3', (x, w)) == \
+        roofline.PEAK_BF16_FLOPS
+    f, b = fams['convt4s2'].cost('convt4s2', (x, torch.empty(16, 8, 4, 4)))
     assert f == 2.0 * 2 * 8 * 64 * 64 * 16 * 4
-    f, b = roofline.cost('conv4s2', (x.float(), torch.empty(8, 16, 4, 4)))
+    f, b = fams['conv4s2'].cost('conv4s2',
+                                (x.float(), torch.empty(8, 16, 4, 4)))
     assert f == 2.0 * 2 * 8 * 16 * 16 * 16 * 16
-    assert roofline.peak('conv4s2', (x.float(),)) == roofline.PEAK_TF32X3_FLOPS
-    assert roofline.peak('instance_norm_act', (x.float(),)) == \
+    assert fams['conv4s2'].peak('conv4s2', (x.float(),)) == \
+        roofline.PEAK_TF32X3_FLOPS
+    assert fams['instance_norm'].peak('instance_norm_act', (x.float(),)) == \
         roofline.PEAK_F32_FLOPS
     assert roofline.bound_s(1e12, 0, 1e12) == 1.0
     assert roofline.bound_s(0, roofline.PEAK_BYTES, 1e12) == 1.0
@@ -120,7 +164,7 @@ def test_recorder_counts_calls_and_restores():
         return 'y'
     mod = types.SimpleNamespace(conv3x3=conv3x3)
     x = torch.empty(1, 4, 8, 8)
-    with roofline.recording(mod) as calls:
+    with roofline.recording(mod, roofline.families()) as calls:
         assert mod.conv3x3(x, torch.empty(2, 4, 3, 3)) == 'y'
         mod.conv3x3(x, torch.empty(2, 4, 3, 3))
     assert mod.conv3x3 is conv3x3
@@ -135,10 +179,12 @@ def test_flop_count_of_one_conv_and_of_a_step():
     with FlopCounterMode(display=False) as fc:
         conv.run(x, Ctx(Draws(0, 'meta')))
     assert fc.get_total_flops() == 2 * 3 * 8 * 8 * 8 * 4 * 16
-    flags = dict(harness.load_json(harness.PKG / 'configs' /
-                                   'sgan-cgan-512-bf16.json')['flags'],
-                 fineSize=256, ngf=4, ndf=4)
-    one, eight = harness.step_flops(flags, 1), harness.step_flops(flags, 8)
+    conf = harness.load_json(harness.PKG / 'configs' /
+                             'sgan-cgan-512-bf16.json')
+    flags = dict(conf['flags'], **conf['cpu_test_flags'])
+    recipe = harness.recipe_class('sgan-cgan-512-bf16.json', conf)
+    one = harness.step_flops(recipe, flags, 1)
+    eight = harness.step_flops(recipe, flags, 8)
     assert one > 0 and eight == pytest.approx(8 * one, rel=1e-9)
 
 
@@ -173,10 +219,11 @@ def test_pool_images_and_traffic_draws():
     """The pools' and the traffic's images: each image's channel its own
     statistics within the mix's ranges, the same from one seed."""
     mix = harness.traffic.load(harness.PKG / 'traffic' / 'b1.chunk10.json')
-    flags = dict(harness.load_json(harness.PKG / 'configs' /
-                                   'sgan-cgan-512-bf16.json')['flags'],
-                 fineSize=64, ngf=4, ndf=4)
-    recipe = harness.ref_train.build(flags, 'cpu')
+    conf = harness.load_json(harness.PKG / 'configs' /
+                             'sgan-cgan-512-bf16.json')
+    flags = dict(conf['flags'], fineSize=64, ngf=4, ndf=4)
+    recipe = harness.recipe_class('sgan-cgan-512-bf16.json', conf)(flags,
+                                                                  'cpu')
     fill = harness.pool_images(recipe, mix, 5, 'cpu')
     assert list(fill) == ['fake']
     x = fill['fake']

@@ -1,7 +1,7 @@
 """What a benchmark process loads: never JAX or the JAX package, and the
-reference nothing of the program.  Modules are compared by their top-level
-name whole (the part before the first dot): the port's name begins with
-the JAX package's."""
+reference, every configuration's reference module with it, nothing of the
+program.  Modules are compared by their top-level name whole (the part
+before the first dot): the port's name begins with the JAX package's."""
 
 import ast
 import json
@@ -11,6 +11,14 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 FORBIDDEN = {'jax', 'jaxlib', 'flax', 'supervised_gan_tpu'}
+
+
+def reference_files():
+    """The module path of the reference that each configuration of
+    BENCHMARK.json names."""
+    bench = json.loads((ROOT / 'BENCHMARK.json').read_text())
+    return sorted({json.loads((ROOT / c['file']).read_text())['reference']
+                   .split()[0] for c in bench['configs']})
 
 
 def loaded_after(code):
@@ -27,15 +35,18 @@ def loaded_after(code):
 
 
 def test_a_cell_loads_no_jax():
-    """Everything a cell's run imports, the program's model built and one
-    reference step's modules included."""
+    """Everything each cell's run imports, the program's model built, one
+    reference step's modules and the kernel families included."""
     mods = loaded_after(
         'import portbench.run, portbench.harness as h\n'
-        'r = h.Run("sgan.b1.chunk10", 1, "cpu", flags=dict(fineSize=256, '
-        'ngf=4, ndf=4))\n'
-        'p = h.Program(r.flags, r.mix, 1, 2, '
+        'b = h.benchmark()\n'
+        'for w in b["workloads"]:\n'
+        '    r = h.Run(w["name"], 1, "cpu", '
+        'flags=h.lookup(b, w["name"])[2]["cpu_test_flags"])\n'
+        '    p = h.Program(r.flags, r.mix, 1, 2, '
         '__import__("torch").device("cpu"), "pb_imports")\n'
-        'h.step_flops(r.flags, 1)\n'
+        '    h.step_flops(r.recipe, r.flags, 1)\n'
+        'h.roofline.families()\n'
         'import portbench.calibrate\n'
         'for m in ("dispatch.host_ms_per_step", "step_mfu"): h.reader(m)\n')
     assert 'supervised_gan_tpu_torch' in mods
@@ -43,14 +54,17 @@ def test_a_cell_loads_no_jax():
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    mods = loaded_after('import portbench.reference.train, '
-                        'portbench.reference.nets, portbench.reference.ctx')
+    names = ['portbench.reference.nets', 'portbench.reference.ctx'] + [
+        p[:-len('.py')].replace('/', '.') for p in reference_files()]
+    mods = loaded_after('import ' + ', '.join(names))
     assert 'supervised_gan_tpu_torch' not in mods
     assert not mods & FORBIDDEN
 
 
 def test_the_reference_sources_import_nothing_of_the_program():
-    for path in (ROOT / 'portbench' / 'reference').glob('*.py'):
+    paths = set((ROOT / 'portbench' / 'reference').glob('*.py'))
+    paths |= {ROOT / p for p in reference_files()}
+    for path in sorted(paths):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             names = []

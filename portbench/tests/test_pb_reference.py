@@ -1,5 +1,6 @@
 """The plain reference against supervised_gan_tpu_torch on the CPU: each
-cell at narrow widths (every net and loss of its configuration, 256 px),
+cell of BENCHMARK.json at its configuration's narrow widths
+(``cpu_test_flags``: every net and loss of the configuration, 256 px),
 the checked train steps (two eager, then a chunk of 10) from the same
 seeded weights, pools, images and draws, in float32.  Both sides then
 compute one function: the first step's numbers are at rounding size, the
@@ -11,11 +12,13 @@ import torch
 
 from portbench import check, harness
 
-NARROW = {
-    'dsgan.b1.chunk10': dict(fineSize=256, noiseSize1=2, noiseSize2=4,
-                             ngf1=4, ngf2=4, nff2=4, ndf1=4, ndf2=4),
-    'sgan.b1.chunk10': dict(fineSize=256, ngf=4, ndf=4),
-}
+BENCH = harness.benchmark()
+CELLS = sorted(w['name'] for w in BENCH['workloads'])
+
+
+def narrow(cell):
+    """The CPU tests' narrow widths of the cell's configuration."""
+    return harness.lookup(BENCH, cell)[2]['cpu_test_flags']
 
 
 @pytest.fixture(autouse=True)
@@ -28,13 +31,13 @@ def few_threads():
 
 def readings(cell, seed, dtype, precision='f32'):
     run = harness.Run(cell, seed, 'cpu',
-                      flags=dict(NARROW[cell], compute_dtype=dtype))
+                      flags=dict(narrow(cell), compute_dtype=dtype))
     prog = run.setup(warmup=False)
     run.free()
     return prog, run.reference(), run
 
 
-@pytest.mark.parametrize('cell', sorted(NARROW))
+@pytest.mark.parametrize('cell', CELLS)
 def test_reference_equals_port_f32(cell):
     prog, ref, run = readings(cell, 7, 'float32')
     found = check.gaps(prog, ref, run.subsets)
@@ -53,7 +56,7 @@ def test_reference_equals_port_f32(cell):
     assert found['change'][0] < 0.15, found['change']
 
 
-@pytest.mark.parametrize('cell', sorted(NARROW))
+@pytest.mark.parametrize('cell', CELLS)
 def test_control_reads_above_the_program(cell):
     """bf16 program against the fp8 control, both against the f32
     reference: on one of the loss numbers the cell compares, the numbers
@@ -68,16 +71,15 @@ def test_control_reads_above_the_program(cell):
     assert ratio > 3, (p, c)
 
 
-def test_weights_keys_match_the_port():
+@pytest.mark.parametrize('cell', CELLS)
+def test_weights_keys_match_the_port(cell):
     """One set of weights loads strictly into both sides: the reference's
     state_dict layout is the port's."""
-    run = harness.Run('sgan.b1.chunk10', 3, 'cpu',
-                      flags=NARROW['sgan.b1.chunk10'])
+    run = harness.Run(cell, 3, 'cpu', flags=narrow(cell))
     program = harness.Program(run.flags, run.mix, 3, 4, torch.device('cpu'),
                               'pb_keys')
     from portbench import weights
-    from portbench.reference import train
-    state = weights.make(train.build(run.flags, 'cpu'), 5, 'cpu')
+    state = weights.make(run.recipe(run.flags, 'cpu'), 5, 'cpu')
     program.load(state)
     for label, net in program.model.nets().items():
         for k, v in net.state_dict().items():
